@@ -3,32 +3,42 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path — ConServe serving qwen3-0.6b at full width
-through `ReplicaEngine`, `EngineServer` and `make_scheduler("conserve")` —
-and holds each hand-written CUDA kernel of that path against its plain
-PyTorch version on the card. Phases, each raising on failure:
+Drives the port's two served paths — ConServe over `ReplicaEngine`,
+`EngineServer` and `make_scheduler("conserve")`, serving qwen3-0.6b and
+rwkv6-3b at full width — and holds each hand-written CUDA kernel of those
+paths against its plain PyTorch version on the card. Phases, each raising on
+failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
   2. build: every kernel from `src/repro_torch/kernels/csrc`, one nvcc per
      source started together, with the seconds and `-Xptxas -v`;
-  3. kernels: K1 (flash-decode) and K2 (flash-prefill) against their plain
-     versions in fp32 (TF32 off) and bf16 at the main path's shapes, with
-     kernel, plain and library (SDPA, timed only) milliseconds from CUDA
-     events after a warm-up, and each kernel's bound from its shapes;
+  3. kernels: K1 (flash-decode) and K2 (flash-prefill) at the qwen path's
+     shapes, K3 (WKV6) at the rwkv6 path's, against their plain versions in
+     fp32 (TF32 off) and with bf16 inputs, with kernel, plain and library
+     (SDPA for K1/K2, timed only; none for K3) milliseconds from CUDA events
+     after a warm-up (the median of five windows), and each kernel's bound
+     from its shapes;
   4. full-width qwen3-0.6b in fp32 from a seeded torch init: prefill and a
      short decode rollout with attention_impl "cuda" and "torch" — logits
      within tolerance, greedy tokens equal;
   5. full-width qwen3-0.6b in bf16 served with strict accounting: (a) the
      golden-trace setup, whose summary must equal
-     tests/golden/decode_golden_trace.json exactly; (b) the main path, one
+     tests/golden/decode_golden_trace.json exactly; (b) the qwen path, one
      prefiller + two decoders on 8 conversations of the launcher's engine
-     trace — all complete, one KV transfer per conversation, both kernels'
-     launch counters > 0 (counted from 0 over this run alone).
+     trace — all complete, one KV transfer per conversation, K1's and K2's
+     launch counters > 0 (counted from 0 over this run alone);
+  6. full-width rwkv6-3b in fp32: prefill (WKV in K3 vs `wkv6_chunked`) and
+     an 8-step decode under "cuda" and "torch" — logits within tolerance,
+     greedy tokens equal;
+  7. full-width rwkv6-3b in bf16: the rwkv6 path, served as in 5b — all
+     complete, one state transfer per conversation, K3's counter > 0
+     (counted from 0 over this run alone).
 
-The last three lines of standard output are the card's name and power
-limit, one JSON object with a record per kernel, and
-`{"ok": true, "device": {...}}`. Without a card, or without the repository
-around it, it exits non-zero before printing any result.
+Each model is freed before the next is loaded. The last three lines of
+standard output are the card's name and power limit, one JSON object with a
+record per kernel, and `{"ok": true, "device": {...}}`. Without a card, or
+without the repository around it, it exits non-zero before printing any
+result.
 """
 from __future__ import annotations
 
@@ -47,6 +57,18 @@ HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense tensor
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 1e-3               # fp32 full-width logits, cuda vs torch impl
+# K3 vs its plain version, relative to max(1, max|plain|): both widen bf16
+# inputs exactly to fp32 and accumulate in fp32, so only the order of the
+# sums differs — but a long prefill whose decay is near 1 grows the state,
+# and an absolute bound would tighten with it
+WKV_RTOL = 5e-5
+# rwkv6-3b fp32 logits, K3 vs `wkv6_chunked`, relative to max(1, max|logit|):
+# the chunked path forms its decay factors as exp(cum_t - cum_j) from
+# log-decays summed over a 64-step chunk (|cum| reaches 10^2-10^3 at this
+# init), so they carry fp32 rounding of ~|cum| * 2^-24 that the serial
+# kernel does not; the WKV states differ by ~1e-4 of their magnitude, which
+# 32 layers carry into the logits
+RWKV_LOGIT_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -63,22 +85,33 @@ def card_line() -> str:
 # --------------------------------------------------------------------------- #
 # timing helpers
 # --------------------------------------------------------------------------- #
-def cuda_ms(fn, warmup: int = 5, iters: int = 20) -> float:
+def cuda_ms(fn, warmup: int = 5, iters: int = 20, windows: int = 5) -> float:
+    """Milliseconds per call: CUDA events around `iters` back-to-back calls,
+    the median of `windows` such windows. A short kernel ends before the
+    host has enqueued the next, so a window that a host stall lands in
+    reads several times slower; the median drops it."""
+    import statistics
+
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / iters)
+    return statistics.median(times)
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
+    """dtype names the arithmetic's peak rate (fp32 CUDA cores or bf16
+    tensor cores)."""
     t_bytes = nbytes / HBM_BYTES_S * 1e3
     t_ops = flops / PEAK_FLOPS[dtype] * 1e3
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
@@ -220,6 +253,68 @@ def phase_kernels(torch, cfg):
     return recs
 
 
+def check_wkv6(torch, dtype, B, S, H, hs, n_live=None, seed=0):
+    """K3 at one prefill shape, r, k, v in `dtype`, the rest fp32, with the
+    model's distributions (logw = -exp(x), decay in (0, 1)). Heads from
+    n_live on are dead pad heads (r zeroed, as the model does). Returns
+    (max|err|, the same relative to max(1, max|plain|), kernel_ms,
+    plain_ms, bound)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    rnd = lambda *s_, sc=0.5: torch.randn(*s_, generator=g,  # noqa: E731
+                                          device="cuda") * sc
+    r, k, v = (rnd(B, S, H, hs).to(dt) for _ in range(3))
+    if n_live is not None:
+        r[:, :, n_live:] = 0
+    logw = -torch.exp(rnd(B, S, H, hs))
+    u, s0 = rnd(H, hs, sc=0.3), rnd(B, H, hs, hs, sc=0.2)
+    args = (r, k, v, logw, u, s0)
+    got = wkv6_cuda(*args)
+    want = wkv6_plain(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    rel = max(max_err(a, b) / max(1.0, float(b.abs().max()))
+              for a, b in zip(got, want))
+    if not rel < WKV_RTOL:
+        raise AssertionError(f"K3 {dtype} B={B} S={S} H={H}: relative "
+                             f"max|err| {rel} >= {WKV_RTOL}")
+    assert ops.wkv6(*args)[0].shape == (B, S, H, hs)
+    k_ms = cuda_ms(lambda: wkv6_cuda(*args))
+    p_ms = cuda_ms(lambda: wkv6_plain(*args), warmup=1,
+                   iters=2 if S > 100 else 10)
+    isz = torch.finfo(dt).bits // 8
+    n = B * S * H * hs
+    nbytes = 3 * n * isz + 2 * 4 * n + 4 * H * hs + 2 * 4 * B * H * hs * hs
+    flops = 5.0 * n * hs
+    return err, rel, k_ms, p_ms, bound_ms(nbytes, flops, "float32")
+
+
+def phase_wkv6(torch, cfg):
+    """K3 at the rwkv6 path's shapes: one sequence of 40 heads of 64 at
+    S = 1, 24 (median append), 150 (median first input) and 512; two
+    sequences of 200 with the heads padded 40 -> 48. Returns the bf16
+    record at S = 150."""
+    H, hs = cfg.d_model // cfg.rwkv_head_size, cfg.rwkv_head_size
+    log(f"phase 3: K3 (WKV6) vs plain version (relative tol {WKV_RTOL})")
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        for B, S, Hk, live in ((1, 1, H, None), (1, 24, H, None),
+                               (1, 150, H, None), (1, 512, H, None),
+                               (2, 200, 48, H)):
+            err, rel, k_ms, p_ms, (bms, by) = check_wkv6(
+                torch, dtype, B, S, Hk, hs, live)
+            log(f"  K3 {dtype:8s} B={B} S={S:4d} H={Hk}: max|err| "
+                f"{err:.3e} (relative {rel:.3e})  kernel {k_ms:.4f} ms  "
+                f"plain {p_ms:.4f} ms  library none  bound {bms:.5f} ms "
+                f"({by})")
+            if dtype == "bfloat16" and S == 150:
+                rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                           library_ms=None, bound_ms=bms, bound_by=by)
+    return {"wkv6": rec}
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32, cuda vs torch attention
 # --------------------------------------------------------------------------- #
@@ -319,7 +414,7 @@ def golden_summary(cfg, params, device):
 def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
                     max_ctx=1024):
     """1 prefiller + 2 decoders under ConServe on the launcher's engine
-    trace. Returns (summary, replicas)."""
+    trace. Returns (summary, server, replicas)."""
     from repro_torch.core import make_scheduler
     from repro_torch.core.metrics import summarize
     from repro_torch.engine import EngineServer, ReplicaEngine
@@ -341,11 +436,47 @@ def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
     for r in reps:
         if r.kv.active.any() or r.kv.active_kv_tokens:
             raise AssertionError(f"replica {r.replica_id} did not drain")
-    return s, reps
+    return s, srv, reps
+
+
+def serve_and_count(torch, cfg, params, card, path_kernels, label):
+    """Serve the main path with every launch count set to 0 just before
+    and read just after; fail unless each kernel of `path_kernels` ran.
+    Returns this path's counts."""
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    s, srv, reps = serve_main_path(cfg, params)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in path_kernels:
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} never launched on the "
+                                 f"{cfg.name} path")
+    pre_tok = sum(r.n_prefill_tokens for r in reps)
+    pre_s = sum(r.prefill_s for r in reps)
+    dec_tok = sum(r.n_decode_tokens for r in reps)
+    dec_s = sum(r.decode_s for r in reps)
+    log(f"  {label}1 prefiller + 2 decoders, {s['n_conversations']} "
+        f"conversations, kv_transfers_per_conv "
+        f"{s['kv_transfers_per_conv']}, wall {wall:.2f} s, launches "
+        f"{launches}")
+    log(f"  [{card}] ttfet_p95 {s['ttfet_p95']:.4f} s, last_tbt_gmean "
+        f"{s['last_tbt_gmean'] * 1e3:.3f} ms, last_tbt_p95 "
+        f"{s['last_tbt_p95'] * 1e3:.3f} ms, prefill {pre_tok / pre_s:.1f} "
+        f"tok/s ({pre_tok} tok), decode {dec_tok / dec_s:.1f} tok/s "
+        f"({dec_tok} tok), peak device memory {peak:.3f} GiB, "
+        f"{srv.transfer_bytes / srv.n_transfers:.0f} B per transfer "
+        f"(nbytes_of), kernel build charged to compile_s "
+        f"{sum(r.compile_s for r in reps):.3f} s")
+    return {n: launches[n] for n in path_kernels}
 
 
 def phase_serve(torch, cfg, device, card):
-    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     log(f"phase 5: {cfg.name} full width {cfg.dtype}, EngineServer + "
         f"ConServe, strict accounting")
@@ -357,33 +488,77 @@ def phase_serve(torch, cfg, device, card):
                              f"{GOLDEN.relative_to(ROOT)}")
     log("  (a) golden-trace summary equals tests/golden/"
         "decode_golden_trace.json")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    ops.reset_launch_counts()
-    t0 = time.perf_counter()
-    s, reps = serve_main_path(cfg, params)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = ops.launch_counts()
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    for name, n in launches.items():
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the "
-                                 "main path")
-    pre_tok = sum(r.n_prefill_tokens for r in reps)
-    pre_s = sum(r.prefill_s for r in reps)
-    dec_tok = sum(r.n_decode_tokens for r in reps)
-    dec_s = sum(r.decode_s for r in reps)
-    log(f"  (b) 1 prefiller + 2 decoders, {s['n_conversations']} "
-        f"conversations, kv_transfers_per_conv "
-        f"{s['kv_transfers_per_conv']}, wall {wall:.2f} s, launches "
-        f"{launches}")
-    log(f"  [{card}] ttfet_p95 {s['ttfet_p95']:.4f} s, last_tbt_gmean "
-        f"{s['last_tbt_gmean'] * 1e3:.3f} ms, last_tbt_p95 "
-        f"{s['last_tbt_p95'] * 1e3:.3f} ms, prefill {pre_tok / pre_s:.1f} "
-        f"tok/s ({pre_tok} tok), decode {dec_tok / dec_s:.1f} tok/s "
-        f"({dec_tok} tok), peak device memory {peak:.3f} GiB, kernel "
-        f"build charged to compile_s {sum(r.compile_s for r in reps):.3f} s")
+    launches = serve_and_count(torch, cfg, params, card,
+                               ("decode_attention", "prefill_attention"),
+                               "(b) ")
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phases 6-7: rwkv6-3b
+# --------------------------------------------------------------------------- #
+def phase_rwkv_fp32_parity(torch, cfg, device, n_decode=8):
+    """Full width in fp32: the prefill's WKV in K3 ("cuda") and in
+    `wkv6_chunked` ("torch"), then decode steps from each one's state."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.models import build_model
+    cfg = cfg.scaled(dtype="float32")
+    log(f"phase 6: {cfg.name} full width fp32 ({cfg.n_layers} layers), "
+        f"WKV in K3 (cuda) vs wkv6_chunked (torch)")
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, 300)
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    logits, caches = {}, {}
+    for impl in ("cuda", "torch"):
+        logits[impl], caches[impl] = model.prefill(params, toks,
+                                                   attention_impl=impl)
+    err_p = max_err(logits["cuda"], logits["torch"])
+    s_c, s_t = (caches[i]["groups"]["p0"]["s"] for i in ("cuda", "torch"))
+    err_s = max_err(s_c, s_t) / max(1.0, float(s_t.abs().max()))
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+    nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    dl = {impl: model.decode_step(params, nxt, caches[impl], pos,
+                                  attention_impl=impl)[0]
+          for impl in ("cuda", "torch")}
+    err_d = max_err(dl["cuda"], dl["torch"])
+    scale = max(1.0, float(logits["torch"].abs().max()))
+    log(f"  logits max|err| prefill {err_p:.3e}, decode {err_d:.3e}, "
+        f"max|logit| {scale:.3f} (tol {RWKV_LOGIT_RTOL} x max(1, max|logit|)"
+        f"); WKV state relative max|err| {err_s:.3e}")
+    if not (err_p < RWKV_LOGIT_RTOL * scale
+            and err_d < RWKV_LOGIT_RTOL * scale):
+        raise AssertionError("fp32 rwkv6 logits differ between impls")
+    streams = {}
+    for impl in ("cuda", "torch"):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=512,
+                            attention_impl=impl)
+        s = eng.kv.acquire()
+        t, _ = eng.prefill_conversation(s, prompt)
+        nt = np.zeros(2, np.int32)
+        em = np.zeros(2, bool)
+        nt[s], em[s] = int(t), True
+        seq, _ = eng.decode_steps(nt, em, n_decode)
+        streams[impl] = [int(t)] + [int(x) for x in seq[:, s]]
+    log(f"  greedy tokens cuda  {streams['cuda']}")
+    log(f"  greedy tokens torch {streams['torch']}")
+    if streams["cuda"] != streams["torch"]:
+        raise AssertionError("rwkv6 greedy tokens differ between impls")
+    del params, caches, eng
+    torch.cuda.empty_cache()
+
+
+def phase_rwkv_serve(torch, cfg, device, card):
+    from repro_torch.models import build_model
+    log(f"phase 7: {cfg.name} full width {cfg.dtype}, EngineServer + "
+        f"ConServe, strict accounting")
+    params = build_model(cfg).init(0, device)
+    launches = serve_and_count(torch, cfg, params, card, ("wkv6",), "")
+    del params
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -421,20 +596,22 @@ def main() -> int:
     _build.ensure_built()
 
     cfg = get_config("qwen3-0.6b")
+    rcfg = get_config("rwkv6-3b")
     recs = phase_kernels(torch, cfg)
+    recs.update(phase_wkv6(torch, rcfg))
     phase_fp32_parity(torch, cfg, device)
     launches = phase_serve(torch, cfg, device, card)
+    phase_rwkv_fp32_parity(torch, rcfg, device)
+    launches.update(phase_rwkv_serve(torch, rcfg, device, card))
 
-    sources = {"decode_attention": "src/repro_torch/kernels/csrc/"
-                                   "decode_attention.cu",
-               "prefill_attention": "src/repro_torch/kernels/csrc/"
-                                    "prefill_attention.cu"}
+    csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
                 "prefill_attention":
-                    "src/repro/kernels/prefill_attention.py:71"}
-    kernels = [dict(name=n, route="cuda", source=sources[n],
+                    "src/repro/kernels/prefill_attention.py:71",
+                "wkv6": "src/repro/kernels/rwkv6_kernel.py:68"}
+    kernels = [dict(name=n, route="cuda", source=f"{csrc}{n}.cu",
                     replaces=replaces[n], launches=launches[n], **recs[n])
-               for n in ("decode_attention", "prefill_attention")]
+               for n in ("decode_attention", "prefill_attention", "wkv6")]
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -11,13 +11,20 @@ must respect: a view taken of `caches` (`slice_slot_prefix`,
 `export_slot_full`) sees later writes, while `export_slot` returns a copy
 that may travel after the slot is released.
 
+Two kinds of leaves sit side by side, as in the reference: growing ones
+(`GROWING_KEYS`: attention K/V, one row per token, (G, n_slots, max_ctx,
+...)) and FIXED states (RWKV6's "s", "shift", "cshift", (G, n_slots, ...),
+the same size whatever the context). A decode step appends to a growing leaf
+at the slot's length and replaces a fixed state; a prefill writes growing
+rows at an offset and replaces a fixed state.
+
 Two index rules of the JAX package do not carry over to torch, and both are
-made explicit here: JAX drops a scatter that falls outside the array (torch
-raises or writes out of bounds), and `dynamic_update_slice` clamps a start
-that would run off the buffer (a torch slice silently writes less). So
-`fold_decode_step` clamps the row it touches and writes back the old row for
-slots that are not live, and `fold_prefill` refuses a write that does not
-fit.
+made explicit here for growing leaves: JAX drops a scatter that falls
+outside the array (torch raises or writes out of bounds), and
+`dynamic_update_slice` clamps a start that would run off the buffer (a torch
+slice silently writes less). So `fold_decode_step` clamps the row it touches
+and writes back the old row for slots that are not live, and `fold_prefill`
+refuses a write that does not fit.
 """
 from __future__ import annotations
 
@@ -27,7 +34,7 @@ from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.model import Model
+from repro_torch.models.model import GROWING_KEYS, Model
 
 def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
                                                              torch.Tensor]]:
@@ -40,61 +47,76 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
             yield path + (k,), v
 
 
-def kv_tree(kv: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """{"k", "v"} leaves -> the cache tree {"groups": {"p0": {...}}}."""
-    return {"groups": {"p0": kv}}
+def cache_tree(leaves_: Dict[str, torch.Tensor]) -> Dict[str, Any]:
+    """Per-name leaves -> the cache tree {"groups": {"p0": {...}}}."""
+    return {"groups": {"p0": leaves_}}
 
 
-def kv_leaves(tree) -> Dict[str, torch.Tensor]:
-    """The cache tree's {"k", "v"} leaves, each (n_layers, batch, L, Hkv,
-    hd): every ported layer is a global-attention layer of the one-kind
-    pattern, stacked under "groups"/"p0"."""
+def cache_leaves(tree) -> Dict[str, torch.Tensor]:
+    """The cache tree's leaves by name, each with the layers on the leading
+    axis: every ported configuration has a one-kind pattern, stacked under
+    "groups"/"p0"."""
     return tree["groups"]["p0"]
+
+
+def _slot_mask(mask: torch.Tensor, ndim: int) -> torch.Tensor:
+    """(n_slots,) -> broadcastable against a (G, n_slots, ...) leaf."""
+    return mask.reshape((1, -1) + (1,) * (ndim - 2))
 
 
 @torch.no_grad()
 def fold_decode_step(caches, updates, lens: torch.Tensor,
                      mask: torch.Tensor) -> None:
-    """Fold one decode step's K/V into `caches`, in place, at each slot's
-    current length.
+    """Fold one decode step's updates into `caches`, in place: a growing
+    leaf takes the new token's row at each slot's current length, a fixed
+    state is replaced.
 
     ``mask`` is the per-step LIVE mask (the ragged scan passes
     ``emit & (step < remaining)``): a slot that is not live keeps its row
-    byte-identical. Its row index is clamped into the buffer and its old
-    bytes are written back, so a slot filled to exactly max_ctx — which the
-    replica's overflow guard allows — never indexes past the end. A live
-    slot always has room (the guard in `ReplicaEngine._remaining_vector`).
+    byte-identical — every write is a select against the old bytes. For a
+    growing leaf its row index is also clamped into the buffer, so a slot
+    filled to exactly max_ctx — which the replica's overflow guard allows —
+    never indexes past the end. A live slot always has room (the guard in
+    `ReplicaEngine._remaining_vector`).
 
     lens (n_slots,) int and mask (n_slots,) bool are device tensors; no host
     sync happens here."""
     ar = torch.arange(mask.shape[0], device=mask.device)
-    ups = kv_leaves(updates)
-    for name, leaf in kv_leaves(caches).items():
+    ups = cache_leaves(updates)
+    for name, leaf in cache_leaves(caches).items():
+        if name not in GROWING_KEYS:
+            leaf.copy_(torch.where(_slot_mask(mask, leaf.dim()),
+                                   ups[name].to(leaf.dtype), leaf))
+            continue
         pos = lens.clamp(max=leaf.shape[2] - 1).long()
         old = leaf[:, ar, pos]  # (G, B, Hkv, hd)
-        leaf[:, ar, pos] = torch.where(mask[None, :, None, None],
+        leaf[:, ar, pos] = torch.where(_slot_mask(mask, old.dim()),
                                        ups[name][:, :, 0].to(leaf.dtype), old)
 
 
 def slice_slot_prefix(caches, slot: int, ctx: int):
-    """Views of ONE slot's cache rows trimmed to the `ctx` bucket:
-    (G, 1, ctx, Hkv, hd). Positions at/beyond the slot's live length hold
-    stale bytes; callers mask them via kv_lens. Views see later in-place
-    writes."""
-    return kv_tree({n: leaf[:, slot:slot + 1, :ctx]
-                    for n, leaf in kv_leaves(caches).items()})
+    """Views of ONE slot's cache: growing leaves trimmed to the `ctx`
+    bucket, (G, 1, ctx, ...), fixed states as the slot's (G, 1, ...) row.
+    Positions at/beyond the slot's live length hold stale bytes; callers
+    mask them via kv_lens. Views see later in-place writes."""
+    return cache_tree({n: leaf[:, slot:slot + 1, :ctx] if n in GROWING_KEYS
+                       else leaf[:, slot:slot + 1]
+                       for n, leaf in cache_leaves(caches).items()})
 
 
 @torch.no_grad()
 def fold_prefill(caches, new_caches, slot: int, offset: int) -> None:
-    """Write a (batch=1) prefill result into slot `slot`, in place, at rows
-    [offset, offset+S). The written region may extend past the slot's live
-    length (bucketed token padding); reads are masked via kv_lens. A region
-    that would run off the buffer raises — it is never clamped or cut (the
-    replica's `_check_prefill_room` and `_prefill_pad` keep the serve path
-    inside)."""
-    new = kv_leaves(new_caches)
-    for name, leaf in kv_leaves(caches).items():
+    """Write a (batch=1) prefill result into slot `slot`, in place: growing
+    rows at [offset, offset+S), fixed states replacing the slot's row. The
+    written region may extend past the slot's live length (bucketed token
+    padding); reads are masked via kv_lens. A region that would run off the
+    buffer raises — it is never clamped or cut (the replica's
+    `_check_prefill_room` and `_prefill_pad` keep the serve path inside)."""
+    new = cache_leaves(new_caches)
+    for name, leaf in cache_leaves(caches).items():
+        if name not in GROWING_KEYS:
+            leaf[:, slot:slot + 1] = new[name].to(leaf.dtype)
+            continue
         S, L = new[name].shape[2], leaf.shape[2]
         if offset < 0 or offset + S > L:
             raise RuntimeError(
@@ -167,29 +189,31 @@ class SlotKVCache:
         self.lengths[slot] = length
 
     def append_step(self, updates, emitted_mask: np.ndarray):
-        """REFERENCE PATH: fold one decode step's K/V in, with the live mask
-        coming from the host. emitted_mask marks slots that actually decoded
-        (others keep their rows)."""
+        """REFERENCE PATH: fold one decode step's updates in, with the live
+        mask coming from the host. emitted_mask marks slots that actually
+        decoded (others keep their rows and states)."""
         fold_decode_step(self.caches, updates, self.kv_lens(),
                          torch.as_tensor(emitted_mask, device=self.device))
         self.lengths[emitted_mask] += 1
 
     # ----- transfer --------------------------------------------------------------
     def export_slot(self, slot: int) -> Dict[str, Any]:
-        """A COPY of one slot's live cache (for KV transfer between
-        replicas): it stays valid after the slot is released and reused."""
+        """A COPY of one slot's live cache — growing rows up to its length,
+        fixed states whole — for KV transfer between replicas: it stays
+        valid after the slot is released and reused."""
         length = int(self.lengths[slot])
-        return {"caches": kv_tree({n: leaf[:, slot:slot + 1, :length].clone()
-                                   for n, leaf in kv_leaves(
-                                       self.caches).items()}),
+        rows = slice_slot_prefix(self.caches, slot, length)
+        return {"caches": cache_tree({n: leaf.clone() for n, leaf in
+                                      cache_leaves(rows).items()}),
                 "length": length}
 
     def import_slot(self, slot: int, package: Dict[str, Any]):
         self.write_prefill(slot, package["caches"], package["length"])
 
     def export_slot_full(self, slot: int):
-        """Full-buffer prefix VIEW of a slot (right-padded beyond the live
-        length; callers mask with kv_lens + prefix_start=0)."""
+        """Full-buffer prefix VIEW of a slot (growing leaves right-padded
+        beyond the live length; callers mask with kv_lens +
+        prefix_start=0)."""
         return slice_slot_prefix(self.caches, slot, self.max_ctx)
 
     def nbytes_of(self, package) -> int:

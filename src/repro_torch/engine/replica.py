@@ -18,12 +18,18 @@ slot cache IN PLACE (see `kvcache`):
   slot s is live only while step < remaining[s]. The sampled token is fed
   back on the device and the host syncs once per chunk.
 
+A model with recurrent layers (RWKV6) never pads a prefill or an append to
+a bucket: every position it consumes moves its state, so padding would
+corrupt it. It runs at the exact length in both prefill modes.
+
 With `attention_impl="cuda"` (the default) fresh prefill attention runs in
-the hand-written kernel K2 and decode attention in K1; a CPU replica uses
-the kernels' plain versions (the tensors lie on the CPU). "torch" keeps the
-online-softmax paths of `models.attention`. `prefill_mode="reference"` and
-`decode_step_all_reference` replay the reference paths (full-buffer prefix
-view, host-side sampling, one step per call) as the parity oracles.
+the hand-written kernel K2, decode attention in K1 and the RWKV6 prefill's
+WKV recurrence in K3; a CPU replica uses the kernels' plain versions (the
+tensors lie on the CPU). "torch" keeps the online-softmax paths of
+`models.attention` and the chunked `wkv6_chunked`.
+`prefill_mode="reference"` and `decode_step_all_reference` replay the
+reference paths (full-buffer prefix view, host-side sampling, one step per
+call) as the parity oracles.
 
 Timing: every measured dt ends in `torch.cuda.synchronize()` on a CUDA
 replica. Building the CUDA kernels is charged to `compile_s` of the replica
@@ -40,10 +46,11 @@ import torch
 from repro_torch.core.runtime import PrefixKVPool
 from repro_torch.kernels import _build
 from repro_torch.models import build_model
-from repro_torch.models.config import ModelConfig
+from repro_torch.models.config import RWKV6, ModelConfig
+from repro_torch.models.model import GROWING_KEYS
 
-from .kvcache import (SlotKVCache, fold_decode_step, fold_prefill,
-                      kv_leaves, kv_tree, prefix_hash, slice_slot_prefix)
+from .kvcache import (SlotKVCache, cache_leaves, cache_tree, fold_decode_step,
+                      fold_prefill, prefix_hash, slice_slot_prefix)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -93,8 +100,9 @@ class ReplicaEngine:
         """params: the `LM` module (from `Model.init` or
         `convert.params_from_numpy`); the replica runs on its device.
         attention_impl: "cuda" (default) sends fresh prefill attention
-        through K2 and decode attention through K1 (plain versions on a CPU
-        replica); "torch" keeps the online-softmax torch paths.
+        through K2, decode attention through K1 and the RWKV6 WKV
+        recurrence through K3 (plain versions on a CPU replica); "torch"
+        keeps the online-softmax and chunked-WKV torch paths.
         prefill_mode: "jit" (the name the server uses for the fast path)
         reads an append prefix as a view trimmed to its ctx bucket and
         samples on the device; "reference" replays the eager oracle
@@ -119,6 +127,9 @@ class ReplicaEngine:
         self.replica_id = replica_id
         self.role = role
         self.attention_impl = attention_impl
+        # recurrent prefill consumes every position: padding would corrupt
+        # the state, so such a model prefills at the exact length
+        self.exact_prefill = RWKV6 in cfg.block_pattern
         self.prefill_mode = prefill_mode
         self.compute_s = 0.0  # accumulated measured compute time
         self.compile_s = 0.0  # kernel build time (OUT of dt)
@@ -169,7 +180,10 @@ class ReplicaEngine:
     def _prefill_pad(self, true_len: int, room: int) -> int:
         """Padded token length for a prefill whose slot has `room` positions
         left: the length bucket, or the exact length when the padded write
-        would not fit the slot (the write is never clamped)."""
+        would not fit the slot (the write is never clamped) or the model is
+        recurrent (`exact_prefill`)."""
+        if self.exact_prefill:
+            return true_len
         pad = bucket_len(true_len)
         return pad if pad <= room else true_len
 
@@ -251,13 +265,20 @@ class ReplicaEngine:
 
     def _materialize_prefix(self, slot: int, length: int, ctx: int):
         """Copy a slot's first `length` cache rows out at ctx bucket `ctx`,
-        zero-masked beyond `length` — the immutable pooled representation.
-        Runs before the delta append writes into the slot."""
-        rows = kv_leaves(slice_slot_prefix(self.kv.caches, slot, ctx))
-        live = (torch.arange(ctx, device=self.device) < length).reshape(
-            1, 1, ctx, 1, 1)
-        return kv_tree({n: torch.where(live, leaf, torch.zeros_like(leaf))
-                        for n, leaf in rows.items()})
+        zero-masked beyond `length`, and its fixed states unmasked — the
+        immutable pooled representation. Runs before the delta append
+        writes into the slot (the states would otherwise hold the whole
+        context, not the preamble's)."""
+        rows = cache_leaves(slice_slot_prefix(self.kv.caches, slot, ctx))
+        live = torch.arange(ctx, device=self.device) < length
+        out = {}
+        for n, leaf in rows.items():
+            if n in GROWING_KEYS:
+                m = live.reshape((1, 1, ctx) + (1,) * (leaf.dim() - 3))
+                out[n] = torch.where(m, leaf, torch.zeros_like(leaf))
+            else:
+                out[n] = leaf.clone()
+        return cache_tree(out)
 
     def _prefill_from_pool(self, slot: int, key: str, delta: np.ndarray,
                            prefix_len: int) -> Tuple[np.int32, float]:

@@ -23,6 +23,7 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 SOURCES = {
     "decode_attention": CSRC / "decode_attention.cu",
     "prefill_attention": CSRC / "prefill_attention.cu",
+    "wkv6": CSRC / "wkv6.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

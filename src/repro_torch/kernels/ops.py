@@ -13,10 +13,12 @@ import torch
 
 from .decode_attention import decode_attention_plain, flash_decode_attention
 from .prefill_attention import flash_prefill_attention, prefill_attention_plain
+from .wkv6 import wkv6_cuda, wkv6_plain
 
 IMPLS = ("cuda", "torch")
 KERNELS = {"decode_attention": flash_decode_attention,
-           "prefill_attention": flash_prefill_attention}
+           "prefill_attention": flash_prefill_attention,
+           "wkv6": wkv6_cuda}
 
 
 def _use_kernel(x: torch.Tensor, impl: str) -> bool:
@@ -56,6 +58,14 @@ def decode_attention(q, k, v, lengths=None, *, impl: str = "cuda",
     if _use_kernel(q, impl):
         return flash_decode_attention(q, k, v, lengths, k_new, v_new)
     return decode_attention_plain(q, k, v, lengths, k_new, v_new)
+
+
+def wkv6(r, k, v, logw, u, state, *, impl: str = "cuda"):
+    """WKV6: r, k, v, logw (B, S, H, hs); u (H, hs); state (B, H, hs, hs)
+    float32. Returns (y, final_state), both float32."""
+    if _use_kernel(r, impl):
+        return wkv6_cuda(r, k, v, logw, u, state)
+    return wkv6_plain(r, k, v, logw, u, state)
 
 
 def launch_counts() -> Dict[str, int]:

@@ -39,3 +39,24 @@ def decode_attention_ref(q, k, v, lengths=None):
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bngs,bsnd->bngd", p, v.float())
     return out.reshape(B, H, D).to(q.dtype)
+
+
+def wkv6_ref(r, k, v, logw, u, state):
+    """Step-by-step WKV6 recurrence (the slow oracle).
+    r, k, v: (B, S, H, hs); logw: (B, S, H, hs) (< 0); u: (H, hs);
+    state: (B, H, hs, hs) [key, value] layout. Returns (y (B, S, H, hs),
+    final_state), both float32."""
+    S = r.shape[1]
+    rf, kf, vf = r.float(), k.float(), v.float()
+    uf = u.float()[None]
+    s_ = state.float()
+    ys = []
+    for t in range(S):
+        rt, kt, vt, wt = rf[:, t], kf[:, t], vf[:, t], logw[:, t].float()
+        a = torch.einsum("bhi,bhv->bhiv", kt, vt)  # outer product
+        ys.append(torch.einsum("bhi,bhiv->bhv", rt, s_)
+                  + torch.einsum("bhi,bhi->bh", rt, uf * kt)[..., None] * vt)
+        s_ = torch.exp(wt)[..., None] * s_ + a
+    if not ys:
+        return rf.new_zeros(r.shape), s_
+    return torch.stack(ys, dim=1), s_

@@ -1,17 +1,17 @@
 """Where the time of one decode chunk and one turn-1 prefill goes, on a card.
 
-    python -m repro_torch.launch.profile [--slots 16] [--ctx 300]
-           [--steps 16] [--prefill 512]
+    python -m repro_torch.launch.profile [--arch qwen3-0.6b|rwkv6-3b]
+           [--slots 16] [--ctx 300] [--steps 16] [--prefill 512]
 
-Builds one decode replica of qwen3-0.6b (full width, bf16, seeded torch
-init), fills every slot with a `--ctx`-token conversation, and traces with
-`torch.profiler` one ragged decode chunk of `--steps` steps over all slots
-and one turn-1 prefill of `--prefill` tokens. For each it prints the
-measured wall time (host clock, ending in `torch.cuda.synchronize()`), the
-summed device time of the kernels the trace saw and its share of the wall
-time (the device's busy share; the rest is idle, waiting on the host), the
-number of kernel launches, and the kernels that took the most device time.
-Needs a card.
+Builds one decode replica of `--arch` (default qwen3-0.6b; full width,
+bf16, seeded torch init), fills every slot with a `--ctx`-token
+conversation, and traces with `torch.profiler` one ragged decode chunk of
+`--steps` steps over all slots and one turn-1 prefill of `--prefill`
+tokens. For each it prints the measured wall time (host clock, ending in
+`torch.cuda.synchronize()`), the summed device time of the kernels the
+trace saw and its share of the wall time (the device's busy share; the
+rest is idle, waiting on the host), the number of kernel launches, and the
+kernels that took the most device time. Needs a card.
 """
 from __future__ import annotations
 
@@ -45,7 +45,9 @@ def _report(title, prof, wall_s, top):
 
 
 def main(argv=None):
+    from repro_torch.configs import ALL_ARCHS
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS)
     ap.add_argument("--slots", type=int, default=16)
     ap.add_argument("--ctx", type=int, default=300)
     ap.add_argument("--steps", type=int, default=16)
@@ -62,7 +64,7 @@ def main(argv=None):
     from repro_torch.models import build_model
 
     dev = resolve_device("cuda")
-    cfg = get_config("qwen3-0.6b")
+    cfg = get_config(args.arch)
     params = build_model(cfg).init(0, dev)
     eng = ReplicaEngine(cfg, params, n_slots=args.slots, max_ctx=1024,
                         attention_impl="cuda")

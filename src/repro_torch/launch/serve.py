@@ -1,14 +1,15 @@
 """Serving launcher of the port: the ConServe deployment on real replicas.
 
-  python -m repro_torch.launch.serve --engine [--device cuda|cpu]
-         [--slots N] [--n-conversations N] [--scheduler NAME]
+  python -m repro_torch.launch.serve --engine [--arch qwen3-0.6b|rwkv6-3b]
+         [--device cuda|cpu] [--slots N] [--n-conversations N]
+         [--scheduler NAME]
 
 One prefiller and two decoders, each a `ReplicaEngine` of the reduced
-qwen3-0.6b with seeded weights, behind an `EngineServer` with the chosen
-scheduler, replay a generated agentic trace through the shared `Runtime`
-contract and print the serving summary. `--device` defaults to cuda and
-fails without a card; pass `--device cpu` for a CPU run. (`chip_smoke.py`
-serves the full-width model.)
+`--arch` (default qwen3-0.6b) with seeded weights, behind an `EngineServer`
+with the chosen scheduler, replay a generated agentic trace through the
+shared `Runtime` contract and print the serving summary. `--device` defaults
+to cuda and fails without a card; pass `--device cpu` for a CPU run.
+(`chip_smoke.py` serves both models at full width.)
 """
 import argparse
 
@@ -42,7 +43,8 @@ def engine_trace(n_conversations: int):
 def main(argv=None):
     ap = argparse.ArgumentParser()
     from repro_torch.core import SCHEDULERS
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    from repro_torch.configs import ALL_ARCHS
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS)
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--scheduler", default="conserve",

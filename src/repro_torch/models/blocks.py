@@ -1,5 +1,12 @@
-"""Per-layer block: (norm -> global GQA attention -> residual) + (norm ->
-SwiGLU MLP -> residual), the only layer of the ported configurations."""
+"""Per-layer block: (norm -> sequence mixer -> residual) + (norm -> FFN ->
+residual), specialised by the layer's kind. The ported kinds:
+
+* global GQA attention + SwiGLU MLP (`attn`, `mlp`); its cache is the new
+  tokens' K/V, which the engine appends;
+* RWKV6 time-mix + channel-mix (`tmix`, `cmix`); its cache is a fixed-size
+  state — `s` (the WKV state), `shift` (the time-mix's last *normed* input
+  token) and `cshift` (the channel-mix's) — which the engine replaces.
+"""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -8,26 +15,52 @@ import torch
 from torch import nn
 
 from .attention import Attention, gqa_decode, gqa_prefill
-from .config import ModelConfig
-from .layers import MLP, RMSNorm, apply_mlp
+from .config import ATTN_GLOBAL, RWKV6, ModelConfig
+from .layers import MLP, apply_mlp, make_norm
+from .recurrent import (ChannelMix, TimeMix, rwkv6_decode, rwkv6_init_state,
+                        rwkv6_prefill, rwkv_cmix)
 
 
 class Block(nn.Module):
-    def __init__(self, cfg: ModelConfig, device):
+    def __init__(self, cfg: ModelConfig, kind: str, device):
         super().__init__()
-        self.ln1 = RMSNorm(cfg, device)
-        self.ln2 = RMSNorm(cfg, device)
-        self.attn = Attention(cfg, device)
-        self.mlp = MLP(cfg, device)
+        self.kind = kind
+        self.ln1 = make_norm(cfg, device)
+        self.ln2 = make_norm(cfg, device)
+        if kind == ATTN_GLOBAL:
+            self.attn = Attention(cfg, device)
+            self.mlp = MLP(cfg, device)
+        elif kind == RWKV6:
+            self.tmix = TimeMix(cfg, device)
+            self.cmix = ChannelMix(cfg, device)
+        else:
+            raise NotImplementedError(f"layer kind {kind!r} is not ported")
+
+
+def _cmix(block: Block, cfg: ModelConfig, x, cache: Optional[Dict]):
+    prev = cache["cshift"] if cache is not None else torch.zeros(
+        (x.shape[0], 1, x.shape[-1]), dtype=x.dtype, device=x.device)
+    return rwkv_cmix(block.cmix, cfg, x, prev)
 
 
 def block_prefill(block: Block, cfg: ModelConfig, x, start_pos,
                   cache: Optional[Dict] = None, kv_lens=None,
                   prefix_start=None, attention_impl: str = "torch"
                   ) -> Tuple[torch.Tensor, Dict]:
-    """cache: prefix KV (append-prefill); None = fresh. Returns (x_out,
-    the new tokens' {"k","v"})."""
-    out, cache_out = gqa_prefill(block.attn, cfg, block.ln1(x), start_pos,
+    """cache: prefix KV (append-prefill) or RWKV state; None = fresh (an
+    RWKV layer then starts from the zero state). Returns (x_out, the new
+    tokens' {"k","v"} or the updated {"s", "shift", "cshift"})."""
+    h = block.ln1(x)
+    if block.kind == RWKV6:
+        state = cache if cache is not None else rwkv6_init_state(
+            cfg, x.shape[0], x.device)
+        out, cache_out = rwkv6_prefill(
+            block.tmix, cfg, h, {"s": state["s"], "shift": state["shift"]},
+            attention_impl=attention_impl)
+        x = x + out
+        out, cshift = _cmix(block, cfg, block.ln2(x), cache)
+        return x + out, {**cache_out, "cshift": cshift}
+    out, cache_out = gqa_prefill(block.attn, cfg, h, start_pos,
                                  prefix_kv=cache, kv_lens=kv_lens,
                                  prefix_start=prefix_start,
                                  attention_impl=attention_impl)
@@ -39,11 +72,20 @@ def block_prefill(block: Block, cfg: ModelConfig, x, start_pos,
 def block_decode(block: Block, cfg: ModelConfig, x1, position, cache: Dict,
                  kv_lens=None, ctx_limit: Optional[int] = None,
                  attention_impl: str = "torch") -> Tuple[torch.Tensor, Dict]:
-    """x1: (B,1,D). Returns (x_out, the new token's {"k","v"}); the engine
-    appends them. `ctx_limit` (an upper bound on kv_lens) trims the cache
-    read."""
-    out, cache_out = gqa_decode(block.attn, cfg, block.ln1(x1), position,
-                                cache, kv_lens=kv_lens, ctx_limit=ctx_limit,
+    """x1: (B,1,D). Returns (x_out, the new token's {"k","v"}, which the
+    engine appends, or the updated RWKV state, which it replaces).
+    `ctx_limit` (an upper bound on kv_lens) trims the attention cache read;
+    an RWKV layer reads neither, and its decode step is torch ops."""
+    h = block.ln1(x1)
+    if block.kind == RWKV6:
+        out, cache_out = rwkv6_decode(block.tmix, cfg, h,
+                                      {"s": cache["s"],
+                                       "shift": cache["shift"]})
+        x1 = x1 + out
+        out, cshift = _cmix(block, cfg, block.ln2(x1), cache)
+        return x1 + out, {**cache_out, "cshift": cshift}
+    out, cache_out = gqa_decode(block.attn, cfg, h, position, cache,
+                                kv_lens=kv_lens, ctx_limit=ctx_limit,
                                 attention_impl=attention_impl)
     x1 = x1 + out
     x1 = x1 + apply_mlp(block.mlp, block.ln2(x1))

@@ -4,9 +4,10 @@ The reference draws each leaf from a key folded with Python's salted
 `hash(path)`, so its weights differ from process to process: a test that
 compares the two packages converts the reference's params in the same
 process. The tree is nested dicts of numpy arrays in the reference's layout
-— {"embed": {"w"}, "final_norm": {"scale"}, "unembed": {}, "groups": {"p0":
-{"ln1", "ln2", "attn", "mlp"}}} with the layers stacked on a leading axis —
-and the leaves keep their shapes.
+— {"embed": {"w"}, "final_norm": {"scale"}, "unembed": {} (tied) or {"w"}
+(untied), "groups": {"p0": {"ln1", "ln2", "attn", "mlp"}}} for global GQA,
+{"ln1", "ln2", "tmix", "cmix"} for RWKV6, with the layers stacked on a
+leading axis — and the leaves keep their shapes.
 """
 from __future__ import annotations
 
@@ -22,9 +23,10 @@ from .transformer import LM
 
 
 def _block_leaves(block) -> Dict[str, Dict[str, torch.Tensor]]:
-    """One block's parameters under the reference's names."""
-    return {sub: dict(getattr(block, sub).named_parameters())
-            for sub in ("ln1", "ln2", "attn", "mlp")}
+    """One block's parameters under the reference's names: its submodules
+    (ln1, ln2 and the kind's mixer and FFN) and their leaves."""
+    return {sub: dict(mod.named_parameters())
+            for sub, mod in block.named_children()}
 
 
 @torch.no_grad()
@@ -44,6 +46,8 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
 
     put(lm.embed.w, tree["embed"]["w"], "embed.w")
     put(lm.final_norm.scale, tree["final_norm"]["scale"], "final_norm.scale")
+    if not cfg.tie_embeddings:
+        put(lm.unembed.w, tree["unembed"]["w"], "unembed.w")
     node = tree["groups"]["p0"]
     for i, block in enumerate(lm.blocks):
         for sub, leaves in _block_leaves(block).items():
@@ -61,7 +65,7 @@ def params_to_numpy(lm: LM) -> Dict[str, Any]:
     return {
         "embed": {"w": np_(lm.embed.w)},
         "final_norm": {"scale": np_(lm.final_norm.scale)},
-        "unembed": {},
+        "unembed": {n: np_(t) for n, t in lm.unembed.named_parameters()},
         "groups": {"p0": {sub: {n: np.stack([np_(b[sub][n]) for b in per])
                                 for n in per[0][sub]} for sub in per[0]}},
     }

@@ -4,8 +4,9 @@ Each layer with weights is an `nn.Module` holding its parameters in the JAX
 package's layouts (a projection is `x @ w` with w of shape (d_in, d_out)),
 and the math is a plain function over tensors, so converted weights drop in
 leaf by leaf. Details that a stock torch module gets wrong are kept: RMSNorm
-scales by (1 + scale), the MLP is SwiGLU, RoPE rotates split halves, and the
-embedding multiplies by sqrt(d_model) while the tied unembedding does not.
+scales by (1 + scale), LayerNorm has a scale and no bias and runs in fp32,
+the MLP is SwiGLU, RoPE rotates split halves, and the embedding multiplies
+by sqrt(d_model) (for every family) while the unembedding does not.
 Only what the ported configurations use is here (`transformer.check_ported`
 names the rest).
 """
@@ -68,6 +69,16 @@ def rmsnorm(x, scale, eps: float = 1e-6):
     return (x * (1.0 + scale.float())).to(dt)
 
 
+def layernorm(x, scale, eps: float = 1e-5):
+    """Scale-only LayerNorm, computed in fp32 and cast back."""
+    dt = x.dtype
+    x = x.float()
+    mu = x.mean(dim=-1, keepdim=True)
+    var = (x - mu).square().mean(dim=-1, keepdim=True)
+    x = (x - mu) * torch.rsqrt(var + eps)
+    return (x * scale.float()).to(dt)
+
+
 class RMSNorm(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
@@ -75,6 +86,20 @@ class RMSNorm(nn.Module):
 
     def forward(self, x):
         return rmsnorm(x, self.scale)
+
+
+class LayerNorm(nn.Module):
+    def __init__(self, cfg, device):
+        super().__init__()
+        self.scale = param((cfg.d_model,), cfg.torch_dtype, device)
+
+    def forward(self, x):
+        return layernorm(x, self.scale)
+
+
+def make_norm(cfg, device) -> nn.Module:
+    """The reference's `apply_norm` dispatch, as a module per cfg.norm."""
+    return {"rmsnorm": RMSNorm, "layernorm": LayerNorm}[cfg.norm](cfg, device)
 
 
 # --------------------------------------------------------------------------- #
@@ -121,10 +146,14 @@ def embed(w, cfg, tokens):
     return F.embedding(tokens, w) * math.sqrt(cfg.d_model)
 
 
-def unembed(embed_w, h):
-    """Tied unembedding: the embedding table, without the sqrt(d) scale."""
-    return h @ embed_w.T
+def unembed(embed_w, h, unembed_w=None):
+    """Tied (unembed_w None: the embedding table, without the sqrt(d)
+    scale) or untied (unembed_w (d_model, padded_vocab)) unembedding."""
+    if unembed_w is None:
+        return h @ embed_w.T
+    return h @ unembed_w
 
 
-__all__ = ["param", "init_params", "rmsnorm", "RMSNorm", "MLP", "apply_mlp",
-           "rope_freqs", "apply_rope", "embed", "unembed"]
+__all__ = ["param", "init_params", "rmsnorm", "layernorm", "RMSNorm",
+           "LayerNorm", "make_norm", "MLP", "apply_mlp", "rope_freqs",
+           "apply_rope", "embed", "unembed"]

@@ -9,8 +9,12 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import transformer
-from .config import ModelConfig
+from .config import RWKV6, ModelConfig
 from .layers import init_params
+from .recurrent import _rwkv_dims
+
+# cache leaves that grow by one row per token (the rest are fixed states)
+GROWING_KEYS = ("k", "v")
 
 
 class Model:
@@ -25,13 +29,29 @@ class Model:
                            seed)
 
     def init_cache(self, batch: int, ctx: int, device=None) -> Dict[str, Any]:
-        """Zeroed slot cache in the JAX package's tree:
-        {"groups": {"p0": {"k", "v"}}}, each (n_layers, batch, ctx, Hkv,
-        hd)."""
+        """Zeroed slot cache in the JAX package's tree {"groups": {"p0":
+        leaves}}, the layers on the leading axis. Global GQA: "k", "v"
+        (n_layers, batch, ctx, Hkv, hd). RWKV6 — a fixed size whatever ctx
+        is: "s" (n_layers, batch, nh_pad, hs, hs) fp32, "shift" and
+        "cshift" (n_layers, batch, 1, d_model) in the model dtype. nh_pad
+        comes from `recurrent._rwkv_dims`, as in the model itself (the
+        reference's cache skeleton takes `rwkv_pad_heads_to or nh`, which
+        disagrees with its model when 0 < rwkv_pad_heads_to < nh)."""
         cfg = self.cfg
-        dt = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
-        shape = (cfg.n_layers, batch, ctx, cfg.n_kv_heads, cfg.head_dim)
+        G = cfg.n_layers
         dev = resolve_device(device)
+        if cfg.block_pattern == (RWKV6,):
+            hs = cfg.rwkv_head_size
+            _, nh_pad, _ = _rwkv_dims(cfg)
+            shift = (G, batch, 1, cfg.d_model)
+            z = lambda shape, dt: torch.zeros(shape, dtype=dt,  # noqa: E731
+                                              device=dev)
+            return {"groups": {"p0": {
+                "s": z((G, batch, nh_pad, hs, hs), torch.float32),
+                "shift": z(shift, cfg.torch_dtype),
+                "cshift": z(shift, cfg.torch_dtype)}}}
+        dt = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
+        shape = (G, batch, ctx, cfg.n_kv_heads, cfg.head_dim)
         return {"groups": {"p0": {n: torch.zeros(shape, dtype=dt, device=dev)
                                   for n in ("k", "v")}}}
 
@@ -41,8 +61,10 @@ class Model:
                 attention_impl: str = "torch"):
         """(logits (B,V), caches_out). caches=None: fresh turn-1 prefill;
         otherwise append-prefill against the cached prefix (engine mode:
-        prefix_start=0 with kv_lens masking the padded buffer).
-        `attention_impl="cuda"` sends fresh prefill attention through K2."""
+        prefix_start=0 with kv_lens masking the padded buffer). An RWKV
+        model takes its state as `caches` and reads no kv_lens.
+        `attention_impl="cuda"` sends fresh prefill attention through K2
+        and the RWKV WKV recurrence through K3."""
         return transformer.lm_prefill(params, self.cfg, tokens, caches=caches,
                                       start_pos=start_pos, kv_lens=kv_lens,
                                       prefix_start=prefix_start,
@@ -52,10 +74,11 @@ class Model:
     @torch.no_grad()
     def decode_step(self, params, token, caches, position, kv_lens=None,
                     ctx_limit=None, attention_impl: str = "torch"):
-        """(logits (B,V), cache_updates): the new token's K/V only; the
-        cache manager appends them. `ctx_limit` bounds kv_lens and trims the
-        cache read. `attention_impl="cuda"` serves decode attention through
-        K1."""
+        """(logits (B,V), cache_updates): the new token's K/V only, which
+        the cache manager appends, or the updated RWKV state, which it
+        replaces. `ctx_limit` bounds kv_lens and trims the cache read.
+        `attention_impl="cuda"` serves decode attention through K1 (an RWKV
+        decode step is torch ops under both impls)."""
         return transformer.lm_decode(params, self.cfg, token, caches,
                                      position, kv_lens=kv_lens,
                                      ctx_limit=ctx_limit,
@@ -63,12 +86,14 @@ class Model:
 
 
 def merge_decode_cache(caches, updates):
-    """Fold one decode step's K/V into the caches by concatenation along the
-    length axis. Used by simple rollout loops; the serving engine writes
-    into slot buffers in place instead (repro_torch.engine.kvcache)."""
+    """Fold one decode step's updates into the caches: K/V concatenate along
+    the length axis, fixed states are replaced. Used by simple rollout
+    loops; the serving engine writes into slot buffers in place instead
+    (repro_torch.engine.kvcache)."""
     ups = updates["groups"]["p0"]
     return {"groups": {"p0": {
-        n: torch.cat([leaf, ups[n].to(leaf.dtype)], dim=2)
+        n: (torch.cat([leaf, ups[n].to(leaf.dtype)], dim=2)
+            if n in GROWING_KEYS else ups[n])
         for n, leaf in caches["groups"]["p0"].items()}}}
 
 

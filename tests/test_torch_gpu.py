@@ -5,9 +5,13 @@ marked `gpu` and skips on a machine without one; on a card run
 
 (`--noconftest`: the repository's conftest imports JAX, which a card-only
 machine need not have; nothing here imports JAX or the JAX package). The
-kernels are held against their plain versions (float32 with TF32 off: 2e-5;
-bfloat16: 2e-2), each launch is counted, and the reduced model served
-through the kernels gives the same greedy tokens as the torch path."""
+attention kernels are held against their plain versions (float32 with TF32
+off: 2e-5; bfloat16: 2e-2), K3 against the step recurrence within 5e-5 of
+the result's magnitude (both widen bf16 inputs exactly and accumulate in
+fp32; only the order of the sums differs, and a long prefill whose decay is
+near 1 grows the state), each launch is counted, and the reduced models
+served through the kernels give the same greedy tokens as the torch
+paths."""
 import numpy as np
 import pytest
 
@@ -20,9 +24,11 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, flash_decode_attention)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     flash_prefill_attention, prefill_attention_plain)
+from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
+WKV_RTOL = 5e-5
 
 
 @pytest.fixture
@@ -120,8 +126,98 @@ def test_engine_kernels_match_torch_path_and_count_launches(cuda):
     ops.reset_launch_counts()
     want = roll("torch")
     assert ops.launch_counts() == {"decode_attention": 0,
-                                   "prefill_attention": 0}
+                                   "prefill_attention": 0, "wkv6": 0}
     assert roll("cuda") == want
     counts = ops.launch_counts()
     assert counts["decode_attention"] == 5 * cfg.n_layers
     assert counts["prefill_attention"] == 2 * cfg.n_layers
+    assert counts["wkv6"] == 0
+
+
+def _wkv_inputs(dev, dtype, seed, B, S, H, hs, slow_decay=False):
+    rs = np.random.RandomState(seed)
+    n = lambda shape, sc: torch.from_numpy(  # noqa: E731
+        (rs.standard_normal(shape) * sc).astype(np.float32)).to(dev)
+    r, k, v = (n((B, S, H, hs), 0.5).to(getattr(torch, dtype))
+               for _ in range(3))
+    # decay e^{-e^{x}}: x around -4 keeps it within a few % of 1
+    logw = -torch.exp(n((B, S, H, hs), 0.5) - (4.0 if slow_decay else 0.0))
+    return r, k, v, logw, n((H, hs), 0.3), n((B, H, hs, hs), 0.2)
+
+
+def _wkv_err(got, want):
+    return max(float((g - w).abs().max()) / max(1.0, float(w.abs().max()))
+               for g, w in zip(got, want))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,H,hs,slow", [(1, 1, 40, 64, False),
+                                           (1, 24, 4, 16, False),
+                                           (2, 77, 3, 32, False),
+                                           (1, 150, 40, 64, False),
+                                           (1, 512, 40, 64, True)])
+def test_cuda_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, hs, slow):
+    args = _wkv_inputs(cuda, dtype, 0, B, S, H, hs, slow_decay=slow)
+    before = wkv6_cuda.launches
+    got = ops.wkv6(*args)
+    want = wkv6_plain(*args)
+    torch.cuda.synchronize()
+    assert wkv6_cuda.launches == before + 1
+    assert got[0].dtype == torch.float32 and got[0].shape == (B, S, H, hs)
+    assert _wkv_err(got, want) < WKV_RTOL
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_reads_strided_views(cuda):
+    """r, k, v as head slices of wider tensors (hs axis contiguous, other
+    strides free) give the contiguous copies' result exactly."""
+    r, k, v, logw, u, s0 = _wkv_inputs(cuda, "bfloat16", 1, 2, 33, 6, 32)
+    wide = [torch.cat([x, x], dim=2)[:, :, 3:9] for x in (r, k, v, logw)]
+    assert not wide[0].is_contiguous()
+    a = ops.wkv6(*wide, u, s0)
+    b = ops.wkv6(*(x.contiguous() for x in wide), u, s0)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_refuses_what_the_kernel_does_not_take(cuda):
+    r, k, v, logw, u, s0 = _wkv_inputs(cuda, "float32", 2, 1, 4, 2, 16)
+    with pytest.raises(ValueError, match="head size"):
+        wkv6_cuda(*(torch.zeros(1, 4, 2, 48, device=cuda),) * 4,
+                  torch.zeros(2, 48, device=cuda),
+                  torch.zeros(1, 2, 48, 48, device=cuda))
+    with pytest.raises(ValueError, match="float32"):
+        wkv6_cuda(r, k, v, logw.to(torch.bfloat16), u, s0)
+    with pytest.raises(ValueError, match="hs axis"):
+        wkv6_cuda(r.transpose(2, 3).contiguous().transpose(2, 3), k, v,
+                  logw, u, s0)
+
+
+@pytest.mark.gpu
+def test_rwkv_engine_kernel_matches_torch_path_and_counts_launches(cuda):
+    """The reduced rwkv6-3b on the card: turn-1 prefill, an append and a
+    decode chunk give the same greedy tokens through K3 as through
+    `wkv6_chunked`, and K3 ran once per layer per prefill."""
+    cfg = get_reduced("rwkv6-3b")
+    params = build_model(cfg).init(0, cuda)
+
+    def roll(impl):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=256,
+                            attention_impl=impl)
+        s = eng.kv.acquire()
+        t, _ = eng.prefill_conversation(s, np.arange(7, 44, dtype=np.int32))
+        t2, _ = eng.append_prefill(s, np.arange(60, 75, dtype=np.int32))
+        nt = np.zeros(2, np.int32)
+        em = np.zeros(2, bool)
+        nt[s], em[s] = int(t2), True
+        seq, _ = eng.decode_steps(nt, em, 5)
+        return [int(t), int(t2)] + [int(x) for x in seq[:, s]]
+
+    ops.reset_launch_counts()
+    want = roll("torch")
+    assert ops.launch_counts()["wkv6"] == 0
+    assert roll("cuda") == want
+    counts = ops.launch_counts()
+    assert counts == {"decode_attention": 0, "prefill_attention": 0,
+                      "wkv6": 2 * cfg.n_layers}
