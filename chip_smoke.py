@@ -3,21 +3,22 @@
 
     python3 chip_smoke.py
 
-Drives the port's two served paths — ConServe over `ReplicaEngine`,
-`EngineServer` and `make_scheduler("conserve")`, serving qwen3-0.6b and
-rwkv6-3b at full width — and holds each hand-written CUDA kernel of those
-paths against its plain PyTorch version on the card. Phases, each raising on
-failure:
+Drives the port's three served paths — ConServe over `ReplicaEngine`,
+`EngineServer` and `make_scheduler("conserve")`, serving qwen3-0.6b,
+rwkv6-3b and recurrentgemma-9b at full width — and holds each hand-written
+CUDA kernel of those paths against its plain PyTorch version on the card.
+Phases, each raising on failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
   2. build: every kernel from `src/repro_torch/kernels/csrc`, one nvcc per
      source started together, with the seconds and `-Xptxas -v`;
   3. kernels: K1 (flash-decode) and K2 (flash-prefill) at the qwen path's
-     shapes, K3 (WKV6) at the rwkv6 path's, against their plain versions in
-     fp32 (TF32 off) and with bf16 inputs, with kernel, plain and library
-     (SDPA for K1/K2, timed only; none for K3) milliseconds from CUDA events
-     after a warm-up (the median of five windows), and each kernel's bound
-     from its shapes;
+     shapes, K3 (WKV6) at the rwkv6 path's, K4 (RG-LRU scan) at the
+     recurrentgemma path's, against their plain versions in fp32 (TF32 off)
+     and with bf16 inputs, with kernel, plain and library (SDPA for K1/K2,
+     timed only; none for K3 and K4) milliseconds from CUDA events after a
+     warm-up (the median of five windows), and each kernel's bound from its
+     shapes;
   4. full-width qwen3-0.6b in fp32 from a seeded torch init: prefill and a
      short decode rollout with attention_impl "cuda" and "torch" — logits
      within tolerance, greedy tokens equal;
@@ -32,13 +33,21 @@ failure:
      greedy tokens equal;
   7. full-width rwkv6-3b in bf16: the rwkv6 path, served as in 5b — all
      complete, one state transfer per conversation, K3's counter > 0
-     (counted from 0 over this run alone).
+     (counted from 0 over this run alone);
+  8. full-width recurrentgemma-9b in fp32: prefill of 300 tokens (the RG-LRU
+     recurrence in K4 under "cuda", in the log-depth scan under "torch") and
+     decode steps — logits within tolerance, greedy tokens of a
+     ReplicaEngine pair equal;
+  9. full-width recurrentgemma-9b in bf16: the recurrentgemma path, served
+     as in 5b — all complete, one transfer per conversation, K4's counter
+     > 0 and K1's and K2's at 0 (its attention layers are all local, which
+     the reference, too, runs outside its attention kernels).
 
-Each model is freed before the next is loaded. The last three lines of
-standard output are the card's name and power limit, one JSON object with a
-record per kernel, and `{"ok": true, "device": {...}}`. Without a card, or
-without the repository around it, it exits non-zero before printing any
-result.
+Each model is freed before the next is loaded. The last four lines of
+standard output are the script's wall time, the card's name and power
+limit, one JSON object with a record per kernel, and `{"ok": true,
+"device": {...}}`. Without a card, or without the repository around it, it
+exits non-zero before printing any result.
 """
 from __future__ import annotations
 
@@ -69,6 +78,15 @@ WKV_RTOL = 5e-5
 # kernel does not; the WKV states differ by ~1e-4 of their magnitude, which
 # 32 layers carry into the logits
 RWKV_LOGIT_RTOL = 1e-3
+# K4 vs its plain version: 1e-5 absolute in fp32 (the reference's
+# test_rglru_sweep); with bf16 inputs (widened exactly) 1e-5 relative to
+# max(1, max|plain|)
+RGLRU_TOL = 1e-5
+# recurrentgemma-9b fp32 logits, K4 vs the log-depth scan, relative to
+# max(1, max|logit|): the two scans round differently (a serial FMA chain
+# against a tree of products), ~1e-7 of the state per layer, which 38
+# layers carry into the logits
+RG_LOGIT_RTOL = 1e-3
 
 
 def log(msg: str) -> None:
@@ -315,6 +333,62 @@ def phase_wkv6(torch, cfg):
     return {"wkv6": rec}
 
 
+def check_rglru(torch, dtype, B, S, W, seed=0):
+    """K4 at one prefill shape, log_a and b in `dtype`, h0 fp32, with the
+    reference test's distributions (log_a = -exp(0.3 N): decays in (0, 1)).
+    Returns (max|err|, kernel_ms, plain_ms, bound)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dt = getattr(torch, dtype)
+    rnd = lambda *s_, sc=0.5: torch.randn(*s_, generator=g,  # noqa: E731
+                                          device="cuda") * sc
+    la = (-torch.exp(rnd(B, S, W, sc=0.3))).to(dt)
+    b = rnd(B, S, W).to(dt)
+    h0 = rnd(B, W, sc=0.2)
+    args = (la, b, h0)
+    got = rglru_cuda(*args)
+    want = rglru_plain(*args)
+    torch.cuda.synchronize()
+    err = max(max_err(a, w) for a, w in zip(got, want))
+    scale = 1.0 if dtype == "float32" else max(
+        1.0, max(float(w.abs().max()) for w in want))
+    if not err < RGLRU_TOL * scale:
+        raise AssertionError(f"K4 {dtype} B={B} S={S} W={W}: max|err| {err}"
+                             f" >= {RGLRU_TOL * scale}")
+    assert ops.rglru_scan(*args)[0].shape == (B, S, W)
+    k_ms = cuda_ms(lambda: rglru_cuda(*args))
+    p_ms = cuda_ms(lambda: rglru_plain(*args), warmup=1,
+                   iters=2 if S > 100 else 10)
+    isz = torch.finfo(dt).bits // 8
+    n = B * S * W
+    nbytes = 2 * n * isz + 4 * n + 2 * 4 * B * W
+    ops_ = 3.0 * n  # exp, multiply, add per element
+    return err, k_ms, p_ms, bound_ms(nbytes, ops_, "float32")
+
+
+def phase_rglru(torch, cfg):
+    """K4 at the recurrentgemma path's shapes: one sequence of lru_width
+    4096 at S = 1, 24 (median append), 150 (median first input) and 512; two
+    sequences of 200 at W = 2560 (not a power of two). Returns the fp32
+    record at S = 150 (the model's log_a and b are fp32)."""
+    W = cfg.lru_width
+    log(f"phase 3: K4 (RG-LRU scan) vs plain version (fp32 tol {RGLRU_TOL} "
+        f"absolute; bf16 inputs {RGLRU_TOL} x max(1, max|plain|))")
+    rec = {}
+    for dtype in ("float32", "bfloat16"):
+        for B, S, Wk in ((1, 1, W), (1, 24, W), (1, 150, W), (1, 512, W),
+                         (2, 200, 2560)):
+            err, k_ms, p_ms, (bms, by) = check_rglru(torch, dtype, B, S, Wk)
+            log(f"  K4 {dtype:8s} B={B} S={S:4d} W={Wk}: max|err| {err:.3e}"
+                f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library none"
+                f"  bound {bms:.5f} ms ({by})")
+            if dtype == "float32" and S == 150:
+                rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
+                           library_ms=None, bound_ms=bms, bound_by=by)
+    return {"rglru": rec}
+
+
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32, cuda vs torch attention
 # --------------------------------------------------------------------------- #
@@ -439,10 +513,11 @@ def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
     return s, srv, reps
 
 
-def serve_and_count(torch, cfg, params, card, path_kernels, label):
+def serve_and_count(torch, cfg, params, card, path_kernels, label,
+                    absent=()):
     """Serve the main path with every launch count set to 0 just before
-    and read just after; fail unless each kernel of `path_kernels` ran.
-    Returns this path's counts."""
+    and read just after; fail unless each kernel of `path_kernels` ran and
+    each of `absent` did not. Returns this path's counts."""
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -457,6 +532,10 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} never launched on the "
                                  f"{cfg.name} path")
+    for name in absent:
+        if launches[name] != 0:
+            raise AssertionError(f"kernel {name} launched {launches[name]} "
+                                 f"times on the {cfg.name} path")
     pre_tok = sum(r.n_prefill_tokens for r in reps)
     pre_s = sum(r.prefill_s for r in reps)
     dec_tok = sum(r.n_decode_tokens for r in reps)
@@ -562,7 +641,93 @@ def phase_rwkv_serve(torch, cfg, device, card):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phases 8-9: recurrentgemma-9b
+# --------------------------------------------------------------------------- #
+def phase_rg_fp32_parity(torch, cfg, device, n_decode=8):
+    """Full width in fp32: the prefill's RG-LRU recurrence in K4 ("cuda")
+    and in the log-depth scan ("torch"), then decode steps from each one's
+    caches (folded by merge_decode_cache), then greedy tokens through a
+    ReplicaEngine pair."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.model import merge_decode_cache
+    cfg = cfg.scaled(dtype="float32")
+    log(f"phase 8: {cfg.name} full width fp32 ({cfg.n_layers} layers), "
+        f"RG-LRU in K4 (cuda) vs the log-depth scan (torch)")
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompt = np.random.RandomState(2).randint(0, cfg.vocab_size, 300)
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    logits, caches = {}, {}
+    ops.reset_launch_counts()
+    for impl in ("cuda", "torch"):
+        logits[impl], caches[impl] = model.prefill(params, toks,
+                                                   attention_impl=impl)
+    k4 = ops.launch_counts()["rglru"]
+    if k4 != 26:
+        raise AssertionError(f"K4 launched {k4} times in one prefill, not 26")
+    scale = max(1.0, float(logits["torch"].abs().max()))
+    errs = [max_err(logits["cuda"], logits["torch"])]
+    h_c, h_t = (caches[i]["groups"]["p0"]["h"] for i in ("cuda", "torch"))
+    err_h = max_err(h_c, h_t) / max(1.0, float(h_t.abs().max()))
+    nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    for i in range(4):
+        pos = torch.tensor([len(prompt) + i], dtype=torch.int32,
+                           device=device)
+        step = {}
+        for impl in ("cuda", "torch"):
+            step[impl], up = model.decode_step(params, nxt, caches[impl], pos,
+                                               attention_impl=impl)
+            caches[impl] = merge_decode_cache(caches[impl], up)
+        errs.append(max_err(step["cuda"], step["torch"]))
+        nxt = step["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    log(f"  logits max|err| prefill {errs[0]:.3e}, decode steps "
+        f"{', '.join(f'{e:.3e}' for e in errs[1:])}, max|logit| {scale:.3f} "
+        f"(tol {RG_LOGIT_RTOL} x max(1, max|logit|)); RG-LRU h relative "
+        f"max|err| {err_h:.3e}")
+    if not max(errs) < RG_LOGIT_RTOL * scale:
+        raise AssertionError("fp32 recurrentgemma logits differ between "
+                             "impls")
+    del caches
+    streams = {}
+    for impl in ("cuda", "torch"):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=512,
+                            attention_impl=impl)
+        s = eng.kv.acquire()
+        t, _ = eng.prefill_conversation(s, prompt)
+        nt = np.zeros(2, np.int32)
+        em = np.zeros(2, bool)
+        nt[s], em[s] = int(t), True
+        seq, _ = eng.decode_steps(nt, em, n_decode)
+        streams[impl] = [int(t)] + [int(x) for x in seq[:, s]]
+        del eng
+    log(f"  greedy tokens cuda  {streams['cuda']}")
+    log(f"  greedy tokens torch {streams['torch']}")
+    if streams["cuda"] != streams["torch"]:
+        raise AssertionError("recurrentgemma greedy tokens differ between "
+                             "impls")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_rg_serve(torch, cfg, device, card):
+    from repro_torch.models import build_model
+    log(f"phase 9: {cfg.name} full width {cfg.dtype}, EngineServer + "
+        f"ConServe, strict accounting")
+    params = build_model(cfg).init(0, device)
+    launches = serve_and_count(torch, cfg, params, card, ("rglru",), "",
+                               absent=("decode_attention",
+                                       "prefill_attention", "wkv6"))
+    del params
+    torch.cuda.empty_cache()
+    return launches
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
@@ -597,21 +762,28 @@ def main() -> int:
 
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
+    gcfg = get_config("recurrentgemma-9b")
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
+    recs.update(phase_rglru(torch, gcfg))
     phase_fp32_parity(torch, cfg, device)
     launches = phase_serve(torch, cfg, device, card)
     phase_rwkv_fp32_parity(torch, rcfg, device)
     launches.update(phase_rwkv_serve(torch, rcfg, device, card))
+    phase_rg_fp32_parity(torch, gcfg, device)
+    launches.update(phase_rg_serve(torch, gcfg, device, card))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
                 "prefill_attention":
                     "src/repro/kernels/prefill_attention.py:71",
-                "wkv6": "src/repro/kernels/rwkv6_kernel.py:68"}
+                "wkv6": "src/repro/kernels/rwkv6_kernel.py:68",
+                "rglru": "src/repro/kernels/rglru_kernel.py:43"}
     kernels = [dict(name=n, route="cuda", source=f"{csrc}{n}.cu",
                     replaces=replaces[n], launches=launches[n], **recs[n])
-               for n in ("decode_attention", "prefill_attention", "wkv6")]
+               for n in ("decode_attention", "prefill_attention", "wkv6",
+                         "rglru")]
+    log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,7 @@
 """Architecture config registry of the port: the paper's served model
-(qwen3-0.6b) and rwkv6-3b are ported so far. `get_config(arch)` returns the
-full published config and `get_reduced(arch)` the family-preserving
-smoke-test reduction. Every other architecture the JAX package knows raises
+(qwen3-0.6b), rwkv6-3b and recurrentgemma-9b are ported so far.
+`get_config(arch)` returns the full published config and `get_reduced(arch)`
+the family-preserving smoke-test reduction. Every other architecture the JAX package knows raises
 `KeyError`."""
 from __future__ import annotations
 
@@ -13,12 +13,13 @@ from repro_torch.models.config import ModelConfig, reduced_config
 _MODULES = {
     "qwen3-0.6b": "qwen3_0p6b",
     "rwkv6-3b": "rwkv6_3b",
+    "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # architectures of the reference package that this port does not serve yet
 NOT_PORTED = ("gemma3-12b", "stablelm-12b", "nemotron-4-15b", "olmo-1b",
               "internvl2-26b", "deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
-              "whisper-small", "recurrentgemma-9b")
+              "whisper-small")
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

@@ -11,12 +11,22 @@ must respect: a view taken of `caches` (`slice_slot_prefix`,
 `export_slot_full`) sees later writes, while `export_slot` returns a copy
 that may travel after the slot is released.
 
-Two kinds of leaves sit side by side, as in the reference: growing ones
-(`GROWING_KEYS`: attention K/V, one row per token, (G, n_slots, max_ctx,
-...)) and FIXED states (RWKV6's "s", "shift", "cshift", (G, n_slots, ...),
-the same size whatever the context). A decode step appends to a growing leaf
-at the slot's length and replaces a fixed state; a prefill writes growing
-rows at an offset and replaces a fixed state.
+The tree is the model's (`models.transformer`): leaves under "groups" carry
+the pattern's repetitions on a leading axis, (G, n_slots, ...), leaves under
+"rem" do not, (n_slots, ...). Every function here takes a "rem" leaf through
+a (1, n_slots, ...) view of it, so one code path serves both. Two kinds of
+leaves sit side by side, as in the reference: growing ones (`GROWING_KEYS`:
+attention K/V, one row per token, (…, n_slots, max_ctx, ...)) and FIXED
+states (RWKV6's "s", "shift", "cshift"; RG-LRU's "h", "conv"; (…, n_slots,
+...), the same size whatever the context). A decode step appends to a
+growing leaf at the slot's length and replaces a fixed state; a prefill
+writes growing rows at an offset and replaces a fixed state.
+
+A local-attention layer's K/V is only `min(max_ctx, window)` long, and the
+reference writes a slot's rows at its length past that end without a word
+(ROADMAP queue 3, F5). The port refuses such a cache: `SlotKVCache` raises
+when a model with a local layer asks for max_ctx > window, so every row it
+writes has its own position.
 
 Two index rules of the JAX package do not carry over to torch, and both are
 made explicit here for growing leaves: JAX drops a scatter that falls
@@ -29,12 +39,14 @@ refuses a write that does not fit.
 from __future__ import annotations
 
 import hashlib
-from typing import Any, Dict, Iterator, Optional, Sequence, Tuple
+from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.models.config import ATTN_LOCAL
 from repro_torch.models.model import GROWING_KEYS, Model
+
 
 def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
                                                              torch.Tensor]]:
@@ -47,16 +59,27 @@ def leaves(tree, path: Tuple[str, ...] = ()) -> Iterator[Tuple[Tuple[str, ...],
             yield path + (k,), v
 
 
-def cache_tree(leaves_: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """Per-name leaves -> the cache tree {"groups": {"p0": {...}}}."""
-    return {"groups": {"p0": leaves_}}
+def map_leaves(fn: Callable[[Tuple[str, ...], torch.Tensor], torch.Tensor],
+               tree, path: Tuple[str, ...] = ()) -> Dict[str, Any]:
+    """The tree with every leaf replaced by fn(path, leaf)."""
+    return {k: (map_leaves(fn, v, path + (k,)) if isinstance(v, dict)
+                else fn(path + (k,), v)) for k, v in tree.items()}
 
 
-def cache_leaves(tree) -> Dict[str, torch.Tensor]:
-    """The cache tree's leaves by name, each with the layers on the leading
-    axis: every ported configuration has a one-kind pattern, stacked under
-    "groups"/"p0"."""
-    return tree["groups"]["p0"]
+def leaf_at(tree, path: Tuple[str, ...]) -> torch.Tensor:
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def grouped(path: Tuple[str, ...], t: torch.Tensor) -> torch.Tensor:
+    """A leaf with the repetition axis in front: itself under "groups", a
+    (1, ...) view of a "rem" leaf (writes through it land in the leaf)."""
+    return t if path[0] == "groups" else t.unsqueeze(0)
+
+
+def growing(path: Tuple[str, ...]) -> bool:
+    return path[-1] in GROWING_KEYS
 
 
 def _slot_mask(mask: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -82,26 +105,30 @@ def fold_decode_step(caches, updates, lens: torch.Tensor,
     lens (n_slots,) int and mask (n_slots,) bool are device tensors; no host
     sync happens here."""
     ar = torch.arange(mask.shape[0], device=mask.device)
-    ups = cache_leaves(updates)
-    for name, leaf in cache_leaves(caches).items():
-        if name not in GROWING_KEYS:
+    for path, leaf in leaves(caches):
+        leaf = grouped(path, leaf)
+        up = grouped(path, leaf_at(updates, path))
+        if not growing(path):
             leaf.copy_(torch.where(_slot_mask(mask, leaf.dim()),
-                                   ups[name].to(leaf.dtype), leaf))
+                                   up.to(leaf.dtype), leaf))
             continue
         pos = lens.clamp(max=leaf.shape[2] - 1).long()
         old = leaf[:, ar, pos]  # (G, B, Hkv, hd)
         leaf[:, ar, pos] = torch.where(_slot_mask(mask, old.dim()),
-                                       ups[name][:, :, 0].to(leaf.dtype), old)
+                                       up[:, :, 0].to(leaf.dtype), old)
 
 
 def slice_slot_prefix(caches, slot: int, ctx: int):
     """Views of ONE slot's cache: growing leaves trimmed to the `ctx`
-    bucket, (G, 1, ctx, ...), fixed states as the slot's (G, 1, ...) row.
-    Positions at/beyond the slot's live length hold stale bytes; callers
-    mask them via kv_lens. Views see later in-place writes."""
-    return cache_tree({n: leaf[:, slot:slot + 1, :ctx] if n in GROWING_KEYS
-                       else leaf[:, slot:slot + 1]
-                       for n, leaf in cache_leaves(caches).items()})
+    bucket, (G, 1, ctx, ...) under "groups" and (1, ctx, ...) under "rem",
+    fixed states as the slot's row. Positions at/beyond the slot's live
+    length hold stale bytes; callers mask them via kv_lens. Views see later
+    in-place writes."""
+    def take(path, leaf):
+        ax = 1 if path[0] == "groups" else 0
+        idx = (slice(None),) * ax + (slice(slot, slot + 1),)
+        return leaf[idx + ((slice(None, ctx),) if growing(path) else ())]
+    return map_leaves(take, caches)
 
 
 @torch.no_grad()
@@ -112,17 +139,18 @@ def fold_prefill(caches, new_caches, slot: int, offset: int) -> None:
     padding); reads are masked via kv_lens. A region that would run off the
     buffer raises — it is never clamped or cut (the replica's
     `_check_prefill_room` and `_prefill_pad` keep the serve path inside)."""
-    new = cache_leaves(new_caches)
-    for name, leaf in cache_leaves(caches).items():
-        if name not in GROWING_KEYS:
-            leaf[:, slot:slot + 1] = new[name].to(leaf.dtype)
+    for path, leaf in leaves(caches):
+        leaf = grouped(path, leaf)
+        new = grouped(path, leaf_at(new_caches, path))
+        if not growing(path):
+            leaf[:, slot:slot + 1] = new.to(leaf.dtype)
             continue
-        S, L = new[name].shape[2], leaf.shape[2]
+        S, L = new.shape[2], leaf.shape[2]
         if offset < 0 or offset + S > L:
             raise RuntimeError(
                 f"fold_prefill: rows [{offset}, {offset + S}) of slot {slot} "
                 f"do not fit a buffer of {L} positions")
-        leaf[:, slot:slot + 1, offset:offset + S] = new[name].to(leaf.dtype)
+        leaf[:, slot:slot + 1, offset:offset + S] = new.to(leaf.dtype)
 
 
 class SlotKVCache:
@@ -135,6 +163,15 @@ class SlotKVCache:
         self.n_slots = n_slots
         self.max_ctx = max_ctx
         self.replica_id = replica_id  # diagnostics only (acquire() error)
+        window = self.cfg.window
+        if ATTN_LOCAL in self.cfg.layer_kinds() and window and \
+                max_ctx > window:
+            who = "?" if replica_id is None else replica_id
+            raise ValueError(
+                f"replica {who}: max_ctx {max_ctx} > window {window} of "
+                f"{self.cfg.name}'s local-attention layers: their cache is "
+                f"{window} rows long, and a slot would write rows past its "
+                f"end (F5); use max_ctx <= {window}")
         self.caches = model.init_cache(n_slots, max_ctx, device=device)
         self.device = next(t for _, t in leaves(self.caches)).device
         self.lengths = np.zeros(n_slots, np.int32)
@@ -203,8 +240,7 @@ class SlotKVCache:
         valid after the slot is released and reused."""
         length = int(self.lengths[slot])
         rows = slice_slot_prefix(self.caches, slot, length)
-        return {"caches": cache_tree({n: leaf.clone() for n, leaf in
-                                      cache_leaves(rows).items()}),
+        return {"caches": map_leaves(lambda _, t: t.clone(), rows),
                 "length": length}
 
     def import_slot(self, slot: int, package: Dict[str, Any]):

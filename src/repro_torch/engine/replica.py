@@ -18,15 +18,17 @@ slot cache IN PLACE (see `kvcache`):
   slot s is live only while step < remaining[s]. The sampled token is fed
   back on the device and the host syncs once per chunk.
 
-A model with recurrent layers (RWKV6) never pads a prefill or an append to
-a bucket: every position it consumes moves its state, so padding would
-corrupt it. It runs at the exact length in both prefill modes.
+A model with recurrent layers (RWKV6, RG-LRU) never pads a prefill or an
+append to a bucket: every position it consumes moves its state, so padding
+would corrupt it. It runs at the exact length in both prefill modes.
 
-With `attention_impl="cuda"` (the default) fresh prefill attention runs in
-the hand-written kernel K2, decode attention in K1 and the RWKV6 prefill's
-WKV recurrence in K3; a CPU replica uses the kernels' plain versions (the
-tensors lie on the CPU). "torch" keeps the online-softmax paths of
-`models.attention` and the chunked `wkv6_chunked`.
+With `attention_impl="cuda"` (the default) fresh global prefill attention
+runs in the hand-written kernel K2, global decode attention in K1, the RWKV6
+prefill's WKV recurrence in K3 and the RG-LRU prefill's recurrence in K4; a
+CPU replica uses the kernels' plain versions (the tensors lie on the CPU).
+Local (sliding-window) attention is torch ops under both impls, as in the
+reference. "torch" keeps the online-softmax paths of `models.attention`,
+the chunked `wkv6_chunked` and the log-depth `rglru_scan_logdepth`.
 `prefill_mode="reference"` and `decode_step_all_reference` replay the
 reference paths (full-buffer prefix view, host-side sampling, one step per
 call) as the parity oracles.
@@ -46,11 +48,10 @@ import torch
 from repro_torch.core.runtime import PrefixKVPool
 from repro_torch.kernels import _build
 from repro_torch.models import build_model
-from repro_torch.models.config import RWKV6, ModelConfig
-from repro_torch.models.model import GROWING_KEYS
+from repro_torch.models.config import RGLRU, RWKV6, ModelConfig
 
-from .kvcache import (SlotKVCache, cache_leaves, cache_tree, fold_decode_step,
-                      fold_prefill, prefix_hash, slice_slot_prefix)
+from .kvcache import (SlotKVCache, fold_decode_step, fold_prefill, grouped,
+                      growing, map_leaves, prefix_hash, slice_slot_prefix)
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -99,10 +100,12 @@ class ReplicaEngine:
                  prefix_pool_tokens: int = 0):
         """params: the `LM` module (from `Model.init` or
         `convert.params_from_numpy`); the replica runs on its device.
-        attention_impl: "cuda" (default) sends fresh prefill attention
-        through K2, decode attention through K1 and the RWKV6 WKV
-        recurrence through K3 (plain versions on a CPU replica); "torch"
-        keeps the online-softmax and chunked-WKV torch paths.
+        attention_impl: "cuda" (default) sends fresh global prefill
+        attention through K2, global decode attention through K1, the RWKV6
+        WKV recurrence through K3 and the RG-LRU recurrence through K4
+        (plain versions on a CPU replica); "torch" keeps the torch paths.
+        A model with a local-attention layer needs max_ctx <= its window
+        (`SlotKVCache` refuses a longer one).
         prefill_mode: "jit" (the name the server uses for the fast path)
         reads an append prefix as a view trimmed to its ctx bucket and
         samples on the device; "reference" replays the eager oracle
@@ -129,7 +132,8 @@ class ReplicaEngine:
         self.attention_impl = attention_impl
         # recurrent prefill consumes every position: padding would corrupt
         # the state, so such a model prefills at the exact length
-        self.exact_prefill = RWKV6 in cfg.block_pattern
+        self.exact_prefill = any(k in (RWKV6, RGLRU)
+                                 for k in cfg.block_pattern)
         self.prefill_mode = prefill_mode
         self.compute_s = 0.0  # accumulated measured compute time
         self.compile_s = 0.0  # kernel build time (OUT of dt)
@@ -269,16 +273,16 @@ class ReplicaEngine:
         immutable pooled representation. Runs before the delta append
         writes into the slot (the states would otherwise hold the whole
         context, not the preamble's)."""
-        rows = cache_leaves(slice_slot_prefix(self.kv.caches, slot, ctx))
+        rows = slice_slot_prefix(self.kv.caches, slot, ctx)
         live = torch.arange(ctx, device=self.device) < length
-        out = {}
-        for n, leaf in rows.items():
-            if n in GROWING_KEYS:
-                m = live.reshape((1, 1, ctx) + (1,) * (leaf.dim() - 3))
-                out[n] = torch.where(m, leaf, torch.zeros_like(leaf))
-            else:
-                out[n] = leaf.clone()
-        return cache_tree(out)
+
+        def copy(path, leaf):
+            if not growing(path):
+                return leaf.clone()
+            g = grouped(path, leaf)
+            m = live.reshape((1, 1, ctx) + (1,) * (g.dim() - 3))
+            return torch.where(m, g, torch.zeros_like(g)).reshape(leaf.shape)
+        return map_leaves(copy, rows)
 
     def _prefill_from_pool(self, slot: int, key: str, delta: np.ndarray,
                            prefix_len: int) -> Tuple[np.int32, float]:

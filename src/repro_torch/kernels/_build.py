@@ -24,6 +24,7 @@ SOURCES = {
     "decode_attention": CSRC / "decode_attention.cu",
     "prefill_attention": CSRC / "prefill_attention.cu",
     "wkv6": CSRC / "wkv6.cu",
+    "rglru": CSRC / "rglru.cu",
 }
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")

@@ -13,12 +13,14 @@ import torch
 
 from .decode_attention import decode_attention_plain, flash_decode_attention
 from .prefill_attention import flash_prefill_attention, prefill_attention_plain
+from .rglru import rglru_cuda, rglru_plain
 from .wkv6 import wkv6_cuda, wkv6_plain
 
 IMPLS = ("cuda", "torch")
 KERNELS = {"decode_attention": flash_decode_attention,
            "prefill_attention": flash_prefill_attention,
-           "wkv6": wkv6_cuda}
+           "wkv6": wkv6_cuda,
+           "rglru": rglru_cuda}
 
 
 def _use_kernel(x: torch.Tensor, impl: str) -> bool:
@@ -66,6 +68,14 @@ def wkv6(r, k, v, logw, u, state, *, impl: str = "cuda"):
     if _use_kernel(r, impl):
         return wkv6_cuda(r, k, v, logw, u, state)
     return wkv6_plain(r, k, v, logw, u, state)
+
+
+def rglru_scan(log_a, b, h0, *, impl: str = "cuda"):
+    """Gated linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t: log_a, b
+    (B, S, W); h0 (B, W) float32. Returns (h_all, h_T), both float32."""
+    if _use_kernel(log_a, impl):
+        return rglru_cuda(log_a, b, h0)
+    return rglru_plain(log_a, b, h0)
 
 
 def launch_counts() -> Dict[str, int]:

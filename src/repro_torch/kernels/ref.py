@@ -60,3 +60,19 @@ def wkv6_ref(r, k, v, logw, u, state):
     if not ys:
         return rf.new_zeros(r.shape), s_
     return torch.stack(ys, dim=1), s_
+
+
+def rglru_ref(log_a, b, h0):
+    """Step-by-step gated linear recurrence: h_t = exp(log_a_t)*h_{t-1}+b_t.
+    log_a, b: (B, S, W); h0: (B, W). Returns (h_all (B, S, W), h_final),
+    both float32."""
+    a = torch.exp(log_a.float())
+    bf = b.float()
+    h = h0.float()
+    hs = []
+    for t in range(b.shape[1]):
+        h = a[:, t] * h + bf[:, t]
+        hs.append(h)
+    if not hs:
+        return bf.new_zeros(b.shape), h
+    return torch.stack(hs, dim=1), h

@@ -1,6 +1,7 @@
 """Where the time of one decode chunk and one turn-1 prefill goes, on a card.
 
-    python -m repro_torch.launch.profile [--arch qwen3-0.6b|rwkv6-3b]
+    python -m repro_torch.launch.profile
+           [--arch qwen3-0.6b|rwkv6-3b|recurrentgemma-9b]
            [--slots 16] [--ctx 300] [--steps 16] [--prefill 512]
 
 Builds one decode replica of `--arch` (default qwen3-0.6b; full width,
@@ -11,7 +12,8 @@ tokens. For each it prints the measured wall time (host clock, ending in
 `torch.cuda.synchronize()`), the summed device time of the kernels the
 trace saw and its share of the wall time (the device's busy share; the
 rest is idle, waiting on the host), the number of kernel launches, and the
-kernels that took the most device time. Needs a card.
+kernels that took the most device time, and the launches of each of the
+port's own kernels (K1-K4) in each region. Needs a card.
 """
 from __future__ import annotations
 
@@ -30,6 +32,8 @@ def _device_us(evt) -> float:
 
 def _report(title, prof, wall_s, top):
     import torch
+
+    from repro_torch.kernels import ops
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     rows = [r for r in rows if r[1] > 0]
@@ -41,6 +45,8 @@ def _report(title, prof, wall_s, top):
     for key, us, n in sorted(rows, key=lambda r: -r[1])[:top]:
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
               f"x{n:<5d} {key[:90]}")
+    print(f"  port kernel launches: {ops.launch_counts()}")
+    ops.reset_launch_counts()
     return busy_ms, launches
 
 
@@ -61,6 +67,7 @@ def main(argv=None):
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.engine import ReplicaEngine
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
     dev = resolve_device("cuda")
@@ -82,6 +89,7 @@ def main(argv=None):
     _, dt0 = eng.decode_steps(nt, em, args.steps)
     print(f"decode chunk without the profiler: {dt0 * 1e3:.3f} ms "
           f"({dt0 * 1e3 / args.steps:.3f} ms per step)")
+    ops.reset_launch_counts()
     with profile(activities=acts) as prof:
         _, dt = eng.decode_steps(nt, em, args.steps)
     _report(f"decode chunk ({args.steps} steps x {args.slots} slots, "
@@ -96,6 +104,7 @@ def main(argv=None):
             _, dt = eng.prefill_conversation(s, toks)
             print(f"turn-1 prefill without the profiler: {dt * 1e3:.3f} ms")
             continue
+        ops.reset_launch_counts()
         with profile(activities=acts) as prof:
             _, dt = eng.prefill_conversation(s, toks)
         _report(f"turn-1 prefill ({args.prefill} tokens, profiled)", prof,

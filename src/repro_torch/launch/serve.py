@@ -1,15 +1,19 @@
 """Serving launcher of the port: the ConServe deployment on real replicas.
 
-  python -m repro_torch.launch.serve --engine [--arch qwen3-0.6b|rwkv6-3b]
+  python -m repro_torch.launch.serve --engine
+         [--arch qwen3-0.6b|rwkv6-3b|recurrentgemma-9b]
          [--device cuda|cpu] [--slots N] [--n-conversations N]
          [--scheduler NAME]
 
 One prefiller and two decoders, each a `ReplicaEngine` of the reduced
-`--arch` (default qwen3-0.6b) with seeded weights, behind an `EngineServer`
-with the chosen scheduler, replay a generated agentic trace through the
-shared `Runtime` contract and print the serving summary. `--device` defaults
-to cuda and fails without a card; pass `--device cpu` for a CPU run.
-(`chip_smoke.py` serves both models at full width.)
+`--arch` (default qwen3-0.6b) with seeded weights and slots of max_ctx
+1024, behind an `EngineServer` with the chosen scheduler, replay a generated
+agentic trace through the shared `Runtime` contract and print the serving
+summary. A replica refuses max_ctx > window for a model with local
+attention, and the reduced recurrentgemma-9b's window is 64: the launcher
+widens a reduced window below max_ctx to max_ctx, and says so. `--device`
+defaults to cuda and fails without a card; pass `--device cpu` for a CPU
+run. (`chip_smoke.py` serves the models at full width.)
 """
 import argparse
 
@@ -67,11 +71,17 @@ def main(argv=None):
     from repro_torch.device import resolve_device
     from repro_torch.engine import EngineServer, ReplicaEngine
     from repro_torch.models import build_model
+    from repro_torch.models.config import ATTN_LOCAL
 
     device = resolve_device(args.device)
     cfg = get_reduced(args.arch)
+    max_ctx = 1024
+    if ATTN_LOCAL in cfg.block_pattern and 0 < cfg.window < max_ctx:
+        print(f"  {cfg.name} (reduced): window {cfg.window} -> {max_ctx} "
+              f"(a replica needs max_ctx <= window)")
+        cfg = cfg.scaled(window=max_ctx)
     params = build_model(cfg).init(0, device)
-    reps = [ReplicaEngine(cfg, params, n_slots=args.slots, max_ctx=1024,
+    reps = [ReplicaEngine(cfg, params, n_slots=args.slots, max_ctx=max_ctx,
                           replica_id=i, role="prefill" if i == 0 else "decode")
             for i in range(3)]
     srv = EngineServer(make_scheduler(args.scheduler), reps,

@@ -1,10 +1,15 @@
-"""Global GQA attention: blocked online-softmax prefill and append-prefill,
-the two-branch decode against a slot cache, and the routes into the port's
-CUDA kernels (`attention_impl="cuda"`).
+"""GQA attention, global and sliding-window: blocked online-softmax prefill
+and append-prefill, the chunked sliding-window prefill, the two-branch decode
+against a slot cache, and the routes into the port's CUDA kernels
+(`attention_impl="cuda"`).
 
 Conventions follow the JAX package's `models/attention.py`: q, k, v are
 (B, S, H, D); decode reads a cache (B, L, Hkv, D) that it never writes —
-it returns the new token's K/V and the cache manager appends it.
+it returns the new token's K/V and the cache manager appends it. A layer's
+kind picks its RoPE theta (`rope_theta_local` for a local layer) and its
+window (`cfg.window` for a local layer, 0 for a global one). The kernels are
+reached as in the reference: K2 only for a fresh global prefill, K1 only
+for a global decode; a local layer runs torch ops under both impls.
 """
 from __future__ import annotations
 
@@ -14,7 +19,7 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
-from .config import ModelConfig
+from .config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from .layers import apply_rope, param, rope_freqs
 
 NEG_INF = -1e30
@@ -158,6 +163,50 @@ def dequantize_kv(x, cfg: ModelConfig):
     return (x.float() * cfg.kv_quant_scale).to(cfg.torch_dtype)
 
 
+def local_attention(q, k, v, q_start: int, window: int, *,
+                    q_chunk: int = 256):
+    """Sliding-window causal attention, linear in sequence length.
+
+    q, k, v: (B, S, H, D) aligned (kv covers the same positions as q plus any
+    cached prefix to the left already included in k/v). Each Q chunk reads
+    exactly the `window + q_chunk` keys that end at the chunk's end — O(S·W)
+    in all. k and v are padded by `window + q_chunk` on the left and by the
+    query padding on the right, so every chunk's slice lies inside them.
+    (The reference pads only the left; its `dynamic_slice` then clamps the
+    last chunk's start when S > q_chunk and S % q_chunk != 0, shifting that
+    chunk's keys against their positions — ROADMAP queue 3, F7.)"""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    prefix = Skv - Sq  # cached tokens to the left of q
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    q_chunk = min(q_chunk, Sq)
+    pq = (-Sq) % q_chunk
+    if pq:
+        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
+    span = window + q_chunk  # keys visible to one q chunk
+    k_pad = torch.nn.functional.pad(k, (0, 0, 0, 0, span, pq))
+    v_pad = torch.nn.functional.pad(v, (0, 0, 0, 0, span, pq))
+    outs = []
+    for qs in range(0, Sq + pq, q_chunk):
+        q_blk = q[:, qs:qs + q_chunk]
+        start = prefix + qs + q_chunk  # k_pad index of the chunk's end - span
+        k_blk = k_pad[:, start:start + span]
+        v_blk = v_pad[:, start:start + span]
+        qp = q_start + qs + torch.arange(q_chunk, device=dev)
+        kp = q_start + qs + q_chunk - span + torch.arange(span, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(),
+                         k_blk.float()) * scale
+        ok = (kp[None, :] <= qp[:, None]) & (kp[None, :] > qp[:, None]
+                                             - window)
+        ok &= kp[None, :] >= 0
+        s = torch.where(ok[None, None], s, torch.full_like(s, NEG_INF))
+        p = torch.softmax(s, dim=-1)
+        outs.append(torch.einsum("bhqk,bkhd->bqhd", p, v_blk.float()))
+    out = torch.cat(outs, dim=1)
+    return out[:, :Sq].to(q.dtype)
+
+
 # --------------------------------------------------------------------------- #
 # Decode attention (two-branch flash-decode combine)
 # --------------------------------------------------------------------------- #
@@ -168,12 +217,15 @@ def _partial_softmax(s, mask):
     return m, p.sum(dim=-1), p
 
 
-def decode_attention(q1, k_cache, v_cache, k_new, v_new, *, kv_lens=None):
+def decode_attention(q1, k_cache, v_cache, k_new, v_new, *, kv_lens=None,
+                     window: int = 0, pos=None):
     """One-token GQA attention against cache + the freshly produced token.
 
     q1: (B, 1, H, D); caches: (B, L, Hkv, D); new: (B, 1, Hkv, D). A
     two-branch flash combine: the cache is read-only and never concatenated
-    with the new token."""
+    with the new token. With `window` and the token's position `pos`
+    (scalar or (B,)), cache row idx is visible only if idx > pos - window:
+    the cache starts at position 0, so a row's index is its position."""
     B, _, H, D = q1.shape
     L = k_cache.shape[1]
     Hkv = k_cache.shape[2]
@@ -188,6 +240,10 @@ def decode_attention(q1, k_cache, v_cache, k_new, v_new, *, kv_lens=None):
     if kv_lens is not None:
         mask_c &= idx[None, None, None, :] < kv_lens.to(dev)[:, None, None,
                                                              None]
+    if window and pos is not None:
+        p_ = torch.as_tensor(pos, device=dev)
+        p_ = p_.reshape(-1, 1, 1, 1) if p_.dim() else p_
+        mask_c &= idx[None, None, None, :] > (p_ - window)
     m_c, l_c, p_c = _partial_softmax(s_c, mask_c)
     o_c = torch.einsum("bngl,blnd->bngd", p_c, v_cache.float())
 
@@ -225,11 +281,21 @@ def _check_impl(attention_impl: str):
                          f"{ATTN_IMPLS}")
 
 
-def gqa_prefill(attn: Attention, cfg: ModelConfig, x, start_pos: int,
-                prefix_kv: Optional[Dict] = None,
+def _theta_window(cfg: ModelConfig, kind: str):
+    """(RoPE theta, window) of a layer of `kind`."""
+    if kind == ATTN_GLOBAL:
+        return cfg.rope_theta, 0
+    if kind == ATTN_LOCAL:
+        return cfg.rope_theta_local, cfg.window
+    raise ValueError(f"attention kind {kind!r} is not ported")
+
+
+def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
+                start_pos: int, prefix_kv: Optional[Dict] = None,
                 kv_lens=None, prefix_start: Optional[int] = None,
                 attention_impl: str = "torch"):
-    """Prefill / append-prefill. Returns (out, {"k","v"} new-token cache).
+    """Prefill / append-prefill of a global or local (sliding-window) layer.
+    Returns (out, {"k","v"} new-token cache).
 
     prefix_kv layouts:
       * default (prefix_start=None): the prefix buffer ends exactly at
@@ -239,15 +305,18 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, x, start_pos: int,
         mask the padding.
 
     `attention_impl="cuda"` routes FRESH global-attention prefill (no
-    prefix, no kv_lens masking) through the flash-prefill kernel K2, at any
-    S: the kernel masks its ragged last tile. Append-prefill prefix reads
-    and kv_lens-masked cases take the online-softmax path below."""
+    prefix, no kv_lens masking, window 0) through the flash-prefill kernel
+    K2, at any S: the kernel masks its ragged last tile. A fresh local
+    prefill takes `local_attention`; append-prefill prefix reads and
+    kv_lens-masked cases take the online-softmax path with the layer's
+    window."""
     _check_impl(attention_impl)
     B, S, _ = x.shape
     q, k, v = _proj_qkv(attn, cfg, x)
+    theta, window = _theta_window(cfg, kind)
     pos = start_pos + torch.arange(S, device=x.device)
-    q = apply_rope(q, pos, cfg.rope_theta)
-    k = apply_rope(k, pos, cfg.rope_theta)
+    q = apply_rope(q, pos, theta)
+    k = apply_rope(k, pos, theta)
     new_cache = {"k": k, "v": v}
 
     if prefix_kv is not None:
@@ -267,15 +336,19 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, x, start_pos: int,
                  torch.ones((B, S), dtype=torch.bool, device=x.device)],
                 dim=1)
         out = online_attention(q, k_all, v_all, pos, kv_pos, causal=True,
-                               kv_valid=kv_valid)
-    elif attention_impl == "cuda" and kv_lens is None:
+                               window=window, kv_valid=kv_valid)
+    elif attention_impl == "cuda" and kv_lens is None and window == 0:
         from repro_torch.kernels import ops
         out = ops.prefill_attention(q, k, v, impl="cuda")
     else:
         kf = _repeat_kv(k, cfg.n_heads)
         vf = _repeat_kv(v, cfg.n_heads)
-        out = online_attention(q, kf, vf, pos, pos, causal=True,
-                               kv_lens=kv_lens, q_chunk=256, kv_chunk=256)
+        if window:
+            out = local_attention(q, kf, vf, start_pos, window)
+        else:
+            out = online_attention(q, kf, vf, pos, pos, causal=True,
+                                   kv_lens=kv_lens, q_chunk=256,
+                                   kv_chunk=256)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ attn.wo, new_cache
 
@@ -289,28 +362,31 @@ def _trim_ctx(leaf, ctx_limit: Optional[int]):
     return leaf[:, :ctx_limit]
 
 
-def gqa_decode(attn: Attention, cfg: ModelConfig, x1, position, cache: Dict,
-               kv_lens=None, ctx_limit: Optional[int] = None,
+def gqa_decode(attn: Attention, cfg: ModelConfig, kind: str, x1, position,
+               cache: Dict, kv_lens=None, ctx_limit: Optional[int] = None,
                attention_impl: str = "torch"):
     """x1: (B,1,D); cache: {"k","v"} (B,L,Hkv,hd); position scalar or (B,).
     `ctx_limit` is an upper bound on kv_lens: the cache read is trimmed to
-    it. `attention_impl="cuda"` serves the attention through the
-    flash-decode kernel K1, which takes the new token as a second branch —
-    nothing is scattered into the trimmed cache, so a slot longer than the
-    trimmed read (an idle one) cannot index past it. Without kv_lens the
-    two-branch torch combine runs. Returns (out, new_kv)."""
+    it. `attention_impl="cuda"` serves a global layer's attention through
+    the flash-decode kernel K1, which takes the new token as a second
+    branch — nothing is scattered into the trimmed cache, so a slot longer
+    than the trimmed read (an idle one) cannot index past it. A local layer,
+    or a call without kv_lens, takes the two-branch torch combine with the
+    layer's window. Returns (out, new_kv)."""
     _check_impl(attention_impl)
     q, k, v = _proj_qkv(attn, cfg, x1)
-    q = rope_single(q, position, cfg.rope_theta)
-    k = rope_single(k, position, cfg.rope_theta)
+    theta, window = _theta_window(cfg, kind)
+    q = rope_single(q, position, theta)
+    k = rope_single(k, position, theta)
     k_c = dequantize_kv(_trim_ctx(cache["k"], ctx_limit), cfg)
     v_c = dequantize_kv(_trim_ctx(cache["v"], ctx_limit), cfg)
-    if attention_impl == "cuda" and kv_lens is not None:
+    if attention_impl == "cuda" and kv_lens is not None and window == 0:
         from repro_torch.kernels import ops
         out = ops.decode_attention(
             q[:, 0].contiguous(), k_c, v_c, kv_lens, impl="cuda",
             k_new=k[:, 0].contiguous(), v_new=v[:, 0].contiguous())[:, None]
     else:
-        out = decode_attention(q, k_c, v_c, k, v, kv_lens=kv_lens)
+        out = decode_attention(q, k_c, v_c, k, v, kv_lens=kv_lens,
+                               window=window, pos=position)
     out = out.reshape(x1.shape[0], 1, cfg.n_heads * cfg.head_dim)
     return out @ attn.wo, {"k": quantize_kv(k, cfg), "v": quantize_kv(v, cfg)}

@@ -1,11 +1,14 @@
 """Per-layer block: (norm -> sequence mixer -> residual) + (norm -> FFN ->
 residual), specialised by the layer's kind. The ported kinds:
 
-* global GQA attention + SwiGLU MLP (`attn`, `mlp`); its cache is the new
-  tokens' K/V, which the engine appends;
+* global and local (sliding-window) GQA attention + the gated MLP (`attn`,
+  `mlp`); its cache is the new tokens' K/V, which the engine appends;
 * RWKV6 time-mix + channel-mix (`tmix`, `cmix`); its cache is a fixed-size
   state — `s` (the WKV state), `shift` (the time-mix's last *normed* input
-  token) and `cshift` (the channel-mix's) — which the engine replaces.
+  token) and `cshift` (the channel-mix's) — which the engine replaces;
+* RG-LRU + the gated MLP (`rglru`, `mlp`); its cache is a fixed-size state —
+  `h` (the recurrence) and `conv` (the conv's last K-1 inputs) — which the
+  engine replaces.
 """
 from __future__ import annotations
 
@@ -15,10 +18,13 @@ import torch
 from torch import nn
 
 from .attention import Attention, gqa_decode, gqa_prefill
-from .config import ATTN_GLOBAL, RWKV6, ModelConfig
+from .config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
 from .layers import MLP, apply_mlp, make_norm
-from .recurrent import (ChannelMix, TimeMix, rwkv6_decode, rwkv6_init_state,
-                        rwkv6_prefill, rwkv_cmix)
+from .recurrent import (RGLRU as RGLRUMix, ChannelMix, TimeMix, rglru_decode,
+                        rglru_init_state, rglru_prefill, rwkv6_decode,
+                        rwkv6_init_state, rwkv6_prefill, rwkv_cmix)
+
+ATTN_KINDS = (ATTN_GLOBAL, ATTN_LOCAL)
 
 
 class Block(nn.Module):
@@ -27,8 +33,11 @@ class Block(nn.Module):
         self.kind = kind
         self.ln1 = make_norm(cfg, device)
         self.ln2 = make_norm(cfg, device)
-        if kind == ATTN_GLOBAL:
+        if kind in ATTN_KINDS:
             self.attn = Attention(cfg, device)
+            self.mlp = MLP(cfg, device)
+        elif kind == RGLRU:
+            self.rglru = RGLRUMix(cfg, device)
             self.mlp = MLP(cfg, device)
         elif kind == RWKV6:
             self.tmix = TimeMix(cfg, device)
@@ -47,9 +56,9 @@ def block_prefill(block: Block, cfg: ModelConfig, x, start_pos,
                   cache: Optional[Dict] = None, kv_lens=None,
                   prefix_start=None, attention_impl: str = "torch"
                   ) -> Tuple[torch.Tensor, Dict]:
-    """cache: prefix KV (append-prefill) or RWKV state; None = fresh (an
-    RWKV layer then starts from the zero state). Returns (x_out, the new
-    tokens' {"k","v"} or the updated {"s", "shift", "cshift"})."""
+    """cache: prefix KV (append-prefill) or recurrent state; None = fresh (a
+    recurrent layer then starts from the zero state). Returns (x_out, the
+    new tokens' {"k","v"} or the updated state)."""
     h = block.ln1(x)
     if block.kind == RWKV6:
         state = cache if cache is not None else rwkv6_init_state(
@@ -60,12 +69,19 @@ def block_prefill(block: Block, cfg: ModelConfig, x, start_pos,
         x = x + out
         out, cshift = _cmix(block, cfg, block.ln2(x), cache)
         return x + out, {**cache_out, "cshift": cshift}
-    out, cache_out = gqa_prefill(block.attn, cfg, h, start_pos,
-                                 prefix_kv=cache, kv_lens=kv_lens,
-                                 prefix_start=prefix_start,
-                                 attention_impl=attention_impl)
+    if block.kind == RGLRU:
+        state = cache if cache is not None else rglru_init_state(
+            cfg, x.shape[0], x.device)
+        out, cache_out = rglru_prefill(block.rglru, cfg, h, state,
+                                       attention_impl=attention_impl)
+    else:
+        out, cache_out = gqa_prefill(block.attn, cfg, block.kind, h,
+                                     start_pos, prefix_kv=cache,
+                                     kv_lens=kv_lens,
+                                     prefix_start=prefix_start,
+                                     attention_impl=attention_impl)
     x = x + out
-    x = x + apply_mlp(block.mlp, block.ln2(x))
+    x = x + apply_mlp(block.mlp, cfg, block.ln2(x))
     return x, cache_out
 
 
@@ -73,9 +89,9 @@ def block_decode(block: Block, cfg: ModelConfig, x1, position, cache: Dict,
                  kv_lens=None, ctx_limit: Optional[int] = None,
                  attention_impl: str = "torch") -> Tuple[torch.Tensor, Dict]:
     """x1: (B,1,D). Returns (x_out, the new token's {"k","v"}, which the
-    engine appends, or the updated RWKV state, which it replaces).
+    engine appends, or the updated recurrent state, which it replaces).
     `ctx_limit` (an upper bound on kv_lens) trims the attention cache read;
-    an RWKV layer reads neither, and its decode step is torch ops."""
+    a recurrent layer reads neither, and its decode step is torch ops."""
     h = block.ln1(x1)
     if block.kind == RWKV6:
         out, cache_out = rwkv6_decode(block.tmix, cfg, h,
@@ -84,9 +100,13 @@ def block_decode(block: Block, cfg: ModelConfig, x1, position, cache: Dict,
         x1 = x1 + out
         out, cshift = _cmix(block, cfg, block.ln2(x1), cache)
         return x1 + out, {**cache_out, "cshift": cshift}
-    out, cache_out = gqa_decode(block.attn, cfg, h, position, cache,
-                                kv_lens=kv_lens, ctx_limit=ctx_limit,
-                                attention_impl=attention_impl)
+    if block.kind == RGLRU:
+        out, cache_out = rglru_decode(block.rglru, cfg, h, cache)
+    else:
+        out, cache_out = gqa_decode(block.attn, cfg, block.kind, h, position,
+                                    cache, kv_lens=kv_lens,
+                                    ctx_limit=ctx_limit,
+                                    attention_impl=attention_impl)
     x1 = x1 + out
-    x1 = x1 + apply_mlp(block.mlp, block.ln2(x1))
+    x1 = x1 + apply_mlp(block.mlp, cfg, block.ln2(x1))
     return x1, cache_out

@@ -5,7 +5,8 @@ package's layouts (a projection is `x @ w` with w of shape (d_in, d_out)),
 and the math is a plain function over tensors, so converted weights drop in
 leaf by leaf. Details that a stock torch module gets wrong are kept: RMSNorm
 scales by (1 + scale), LayerNorm has a scale and no bias and runs in fp32,
-the MLP is SwiGLU, RoPE rotates split halves, and the embedding multiplies
+the gated MLP's gelu is the tanh approximation (`jax.nn.gelu`'s default,
+not torch's), RoPE rotates split halves, and the embedding multiplies
 by sqrt(d_model) (for every family) while the unembedding does not.
 Only what the ported configurations use is here (`transformer.check_ported`
 names the rest).
@@ -103,8 +104,16 @@ def make_norm(cfg, device) -> nn.Module:
 
 
 # --------------------------------------------------------------------------- #
-# SwiGLU MLP
+# Activations / gated MLP
 # --------------------------------------------------------------------------- #
+def gelu(x):
+    """`jax.nn.gelu` with its default approximate=True: the tanh form."""
+    return F.gelu(x, approximate="tanh")
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu}
+
+
 class MLP(nn.Module):
     def __init__(self, cfg, device):
         super().__init__()
@@ -114,8 +123,9 @@ class MLP(nn.Module):
         self.wo = param((f, d), dt, device)
 
 
-def apply_mlp(mlp: MLP, x):
-    return (F.silu(x @ mlp.wg) * (x @ mlp.wi)) @ mlp.wo
+def apply_mlp(mlp: MLP, cfg, x):
+    """Gated MLP: act(x @ wg) * (x @ wi) @ wo, act per cfg.activation."""
+    return (ACTIVATIONS[cfg.activation](x @ mlp.wg) * (x @ mlp.wi)) @ mlp.wo
 
 
 # --------------------------------------------------------------------------- #
@@ -155,5 +165,5 @@ def unembed(embed_w, h, unembed_w=None):
 
 
 __all__ = ["param", "init_params", "rmsnorm", "layernorm", "RMSNorm",
-           "LayerNorm", "make_norm", "MLP", "apply_mlp", "rope_freqs",
-           "apply_rope", "embed", "unembed"]
+           "LayerNorm", "make_norm", "gelu", "ACTIVATIONS", "MLP",
+           "apply_mlp", "rope_freqs", "apply_rope", "embed", "unembed"]

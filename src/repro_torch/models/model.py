@@ -2,19 +2,45 @@
 and the two serving entry points — prefill and single-token decode."""
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 import torch
 
 from repro_torch.device import resolve_device
 
 from . import transformer
-from .config import RWKV6, ModelConfig
+from .config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
 from .layers import init_params
 from .recurrent import _rwkv_dims
 
 # cache leaves that grow by one row per token (the rest are fixed states)
 GROWING_KEYS = ("k", "v")
+
+
+def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int, ctx: int
+                       ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each cache leaf one layer of `kind` holds after
+    `ctx` tokens — the reference's `block_cache_skeleton`. Attention caches
+    grow (a local layer's is at most its window long); recurrent states are
+    fixed-size. RWKV6's nh_pad comes from `recurrent._rwkv_dims`, as in the
+    model itself (the reference's skeleton takes `rwkv_pad_heads_to or nh`,
+    which disagrees with its model when 0 < rwkv_pad_heads_to < nh — F6)."""
+    kv_dt = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
+    dt = cfg.torch_dtype
+    if kind in (ATTN_GLOBAL, ATTN_LOCAL):
+        L = min(ctx, cfg.window) if kind == ATTN_LOCAL and cfg.window else ctx
+        shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
+        return {"k": (shape, kv_dt), "v": (shape, kv_dt)}
+    if kind == RWKV6:
+        hs = cfg.rwkv_head_size
+        _, nh_pad, _ = _rwkv_dims(cfg)
+        shift = (batch, 1, cfg.d_model)
+        return {"s": ((batch, nh_pad, hs, hs), torch.float32),
+                "shift": (shift, dt), "cshift": (shift, dt)}
+    if kind == RGLRU:
+        return {"h": ((batch, cfg.lru_width), torch.float32),
+                "conv": ((batch, cfg.conv1d_width - 1, cfg.lru_width), dt)}
+    raise NotImplementedError(f"layer kind {kind!r} is not ported")
 
 
 class Model:
@@ -29,31 +55,27 @@ class Model:
                            seed)
 
     def init_cache(self, batch: int, ctx: int, device=None) -> Dict[str, Any]:
-        """Zeroed slot cache in the JAX package's tree {"groups": {"p0":
-        leaves}}, the layers on the leading axis. Global GQA: "k", "v"
-        (n_layers, batch, ctx, Hkv, hd). RWKV6 — a fixed size whatever ctx
-        is: "s" (n_layers, batch, nh_pad, hs, hs) fp32, "shift" and
-        "cshift" (n_layers, batch, 1, d_model) in the model dtype. nh_pad
-        comes from `recurrent._rwkv_dims`, as in the model itself (the
-        reference's cache skeleton takes `rwkv_pad_heads_to or nh`, which
-        disagrees with its model when 0 < rwkv_pad_heads_to < nh)."""
+        """Zeroed slot cache in the JAX package's tree (`lm_cache_skeleton`):
+        {"groups": {"p{j}": leaves with the pattern's repetitions on a
+        leading axis}, "rem": {"p{j}": leaves}} — see `transformer` for the
+        layering and `layer_cache_shapes` for each kind's leaves."""
         cfg = self.cfg
-        G = cfg.n_layers
         dev = resolve_device(device)
-        if cfg.block_pattern == (RWKV6,):
-            hs = cfg.rwkv_head_size
-            _, nh_pad, _ = _rwkv_dims(cfg)
-            shift = (G, batch, 1, cfg.d_model)
-            z = lambda shape, dt: torch.zeros(shape, dtype=dt,  # noqa: E731
-                                              device=dev)
-            return {"groups": {"p0": {
-                "s": z((G, batch, nh_pad, hs, hs), torch.float32),
-                "shift": z(shift, cfg.torch_dtype),
-                "cshift": z(shift, cfg.torch_dtype)}}}
-        dt = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
-        shape = (G, batch, ctx, cfg.n_kv_heads, cfg.head_dim)
-        return {"groups": {"p0": {n: torch.zeros(shape, dtype=dt, device=dev)
-                                  for n in ("k", "v")}}}
+        pat, n_groups, rem = cfg.pattern_groups()
+        z = lambda lead, spec: torch.zeros(  # noqa: E731
+            lead + spec[0], dtype=spec[1], device=dev)
+        tree: Dict[str, Any] = {}
+        if n_groups:
+            tree["groups"] = {
+                f"p{j}": {n: z((n_groups,), sp) for n, sp in
+                          layer_cache_shapes(cfg, kind, batch, ctx).items()}
+                for j, kind in enumerate(pat)}
+        if rem:
+            tree["rem"] = {
+                f"p{j}": {n: z((), sp) for n, sp in
+                          layer_cache_shapes(cfg, kind, batch, ctx).items()}
+                for j, kind in enumerate(rem)}
+        return tree
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, caches=None, start_pos: int = 0,
@@ -61,10 +83,11 @@ class Model:
                 attention_impl: str = "torch"):
         """(logits (B,V), caches_out). caches=None: fresh turn-1 prefill;
         otherwise append-prefill against the cached prefix (engine mode:
-        prefix_start=0 with kv_lens masking the padded buffer). An RWKV
-        model takes its state as `caches` and reads no kv_lens.
-        `attention_impl="cuda"` sends fresh prefill attention through K2
-        and the RWKV WKV recurrence through K3."""
+        prefix_start=0 with kv_lens masking the padded buffer). A recurrent
+        layer takes its state from `caches` and reads no kv_lens.
+        `attention_impl="cuda"` sends fresh global prefill attention through
+        K2, the RWKV WKV recurrence through K3 and the RG-LRU recurrence
+        through K4."""
         return transformer.lm_prefill(params, self.cfg, tokens, caches=caches,
                                       start_pos=start_pos, kv_lens=kv_lens,
                                       prefix_start=prefix_start,
@@ -75,10 +98,11 @@ class Model:
     def decode_step(self, params, token, caches, position, kv_lens=None,
                     ctx_limit=None, attention_impl: str = "torch"):
         """(logits (B,V), cache_updates): the new token's K/V only, which
-        the cache manager appends, or the updated RWKV state, which it
+        the cache manager appends, or the updated recurrent state, which it
         replaces. `ctx_limit` bounds kv_lens and trims the cache read.
-        `attention_impl="cuda"` serves decode attention through K1 (an RWKV
-        decode step is torch ops under both impls)."""
+        `attention_impl="cuda"` serves global decode attention through K1
+        (local attention and the recurrent decode steps are torch ops under
+        both impls)."""
         return transformer.lm_decode(params, self.cfg, token, caches,
                                      position, kv_lens=kv_lens,
                                      ctx_limit=ctx_limit,
@@ -87,14 +111,16 @@ class Model:
 
 def merge_decode_cache(caches, updates):
     """Fold one decode step's updates into the caches: K/V concatenate along
-    the length axis, fixed states are replaced. Used by simple rollout
-    loops; the serving engine writes into slot buffers in place instead
+    the length axis (axis 2 under "groups", behind the repetition axis; axis
+    1 under "rem"), fixed states are replaced. Used by simple rollout loops;
+    the serving engine writes into slot buffers in place instead
     (repro_torch.engine.kvcache)."""
-    ups = updates["groups"]["p0"]
-    return {"groups": {"p0": {
-        n: (torch.cat([leaf, ups[n].to(leaf.dtype)], dim=2)
-            if n in GROWING_KEYS else ups[n])
-        for n, leaf in caches["groups"]["p0"].items()}}}
+    return {sec: {key: {
+        n: (torch.cat([leaf, updates[sec][key][n].to(leaf.dtype)],
+                      dim=2 if sec == "groups" else 1)
+            if n in GROWING_KEYS else updates[sec][key][n])
+        for n, leaf in node.items()} for key, node in tree.items()}
+        for sec, tree in caches.items()}
 
 
 def build_model(cfg: ModelConfig) -> Model:

@@ -1,5 +1,6 @@
-"""RWKV6 ("Finch", data-dependent decay): the time-mix and the channel-mix,
-the RWKV half of the JAX package's `models/recurrent.py`.
+"""The recurrent layers of the JAX package's `models/recurrent.py`: RWKV6
+("Finch", data-dependent decay) — the time-mix and the channel-mix — and
+RG-LRU (RecurrentGemma / Griffin).
 
 The modules hold their parameters under the reference's leaf names, and the
 dtype steps follow it exactly: the token-shift lerp takes sigmoid(mu) in
@@ -11,6 +12,15 @@ The WKV recurrence of a prefill runs in the hand-written kernel K3
 `wkv6_chunked` under "torch" — the two compute one function, as the
 reference's own test holds its Pallas kernel and its jnp chunked version
 together. A decode step is torch ops, as it is jnp in the reference.
+
+RG-LRU keeps the reference's leaf names and dtype steps too: the gates are
+fp32 GEMMs of the fp32-cast input and weights (the bf16 weights are cast at
+each call, not cached), the prefill's input weight is sqrt(1 - exp(2 log a))
+and the decode's sqrt(1 - a·a), each as the reference writes it, and the
+output gate is gelu in its tanh form. The prefill's recurrence runs in the
+hand-written kernel K4 (`kernels/ops.rglru_scan`) under "cuda" and in
+`rglru_scan_logdepth` — the reference's associative combine in torch ops —
+under "torch". A decode step is torch ops under both.
 """
 from __future__ import annotations
 
@@ -23,7 +33,7 @@ from torch import nn
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import param
+from .layers import gelu, param
 
 
 def _rwkv_dims(cfg: ModelConfig) -> Tuple[int, int, int]:
@@ -195,3 +205,110 @@ def rwkv_cmix(cmix: ChannelMix, cfg: ModelConfig, x, x_prev):
     kx, rx = _lerp(x, shifted, cmix.mu_k), _lerp(x, shifted, cmix.mu_r)
     k = torch.square(torch.relu(kx @ cmix.wk))
     return torch.sigmoid(rx @ cmix.wr) * (k @ cmix.wv), x[:, -1:]
+
+
+# --------------------------------------------------------------------------- #
+# RG-LRU (RecurrentGemma / Griffin)
+# --------------------------------------------------------------------------- #
+RGLRU_C = 8.0
+
+
+class RGLRU(nn.Module):
+    """w_in / w_gate (d, W): the recurrent branch's input and the gelu gate
+    branch; w_out (W, d); conv_k (K, W), conv_b (W,): the causal depthwise
+    conv; w_a, w_i (W, W) with fp32 biases b_a, b_i: the recurrence and
+    input gates; lam (W,) fp32: the per-channel base decay Λ."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, w, dt = cfg.d_model, cfg.lru_width, cfg.torch_dtype
+        self.w_in = param((d, w), dt, device)
+        self.w_gate = param((d, w), dt, device)
+        self.w_out = param((w, d), dt, device)
+        self.conv_k = param((cfg.conv1d_width, w), dt, device)
+        self.conv_b = param((w,), dt, device)
+        self.w_a = param((w, w), dt, device)
+        self.b_a = param((w,), torch.float32, device)
+        self.w_i = param((w, w), dt, device)
+        self.b_i = param((w,), torch.float32, device)
+        self.lam = param((w,), torch.float32, device)
+
+
+def _causal_conv1d(u, kern, bias, prev):
+    """u: (B, S, W); kern: (K, W); prev: (B, K-1, W), the carried inputs.
+    Tap i reads kern[K-1-i]. Returns (out, the new carry = the last K-1 rows
+    of prev ++ u), which holds for any S, S < K-1 included."""
+    K = kern.shape[0]
+    S = u.shape[1]
+    full = torch.cat([prev.to(u.dtype), u], dim=1)
+    out = sum(full[:, i:i + S] * kern[K - 1 - i] for i in range(K))
+    return out + bias, full[:, -(K - 1):]
+
+
+def _rglru_gates(rg: RGLRU, u):
+    """(log_a <= 0, input gate), both fp32: fp32 GEMMs of the fp32 input and
+    weights, as the reference's `u.astype(f32) @ w_a.astype(f32)`."""
+    uf = u.float()
+    a_gate = torch.sigmoid(uf @ rg.w_a.float() + rg.b_a)
+    i_gate = torch.sigmoid(uf @ rg.w_i.float() + rg.b_i)
+    log_a = -RGLRU_C * F.softplus(rg.lam) * a_gate
+    return log_a, i_gate
+
+
+def rglru_scan_logdepth(log_a, b, h0):
+    """h_t = exp(log_a_t) h_{t-1} + b_t over axis 1 as a log-depth scan in
+    torch ops: h0 folded into the first step's b, then the reference's
+    associative combine (a1·a2, a2·b1 + b2) applied at distances 1, 2, 4,
+    .... log_a, b: (B, S, W) fp32; h0: (B, W). Returns (h_all, h_T)."""
+    a = torch.exp(log_a.float())
+    b = b.float().clone()
+    b[:, 0] += a[:, 0] * h0.float()
+    d = 1
+    while d < a.shape[1]:
+        b = torch.cat([b[:, :d], a[:, d:] * b[:, :-d] + b[:, d:]], dim=1)
+        a = torch.cat([a[:, :d], a[:, :-d] * a[:, d:]], dim=1)
+        d *= 2
+    return b, b[:, -1]
+
+
+def rglru_prefill(rg: RGLRU, cfg: ModelConfig, x, state: Dict,
+                  attention_impl: str = "torch"):
+    """state: {"h": (B, W) fp32, "conv": (B, K-1, W)}. Returns (out,
+    state'). The recurrence runs in K4 under "cuda" (its plain version for
+    CPU tensors) and in `rglru_scan_logdepth` under "torch"."""
+    u = x @ rg.w_in
+    u, conv1 = _causal_conv1d(u, rg.conv_k, rg.conv_b, state["conv"])
+    log_a, i_gate = _rglru_gates(rg, u)
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) * (
+        i_gate * u.float())
+    if attention_impl == "cuda":
+        h, h_last = ops.rglru_scan(log_a, b, state["h"], impl="cuda")
+    elif attention_impl == "torch":
+        h, h_last = rglru_scan_logdepth(log_a, b, state["h"])
+    else:
+        raise ValueError(f"attention_impl {attention_impl!r} not in "
+                         "('cuda', 'torch')")
+    gate = gelu(x @ rg.w_gate)
+    out = (h.to(x.dtype) * gate) @ rg.w_out
+    return out, {"h": h_last, "conv": conv1}
+
+
+def rglru_decode(rg: RGLRU, cfg: ModelConfig, x1, state: Dict):
+    """Single-token step: h = a·h + sqrt(1 - a·a)·(i ⊙ u)."""
+    u = x1 @ rg.w_in
+    u, conv1 = _causal_conv1d(u, rg.conv_k, rg.conv_b, state["conv"])
+    log_a, i_gate = _rglru_gates(rg, u[:, 0:1])
+    a = torch.exp(log_a[:, 0])
+    b = torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * (
+        i_gate[:, 0] * u[:, 0].float())
+    h = a * state["h"] + b
+    gate = gelu(x1 @ rg.w_gate)
+    out = (h[:, None].to(x1.dtype) * gate) @ rg.w_out
+    return out, {"h": h, "conv": conv1}
+
+
+def rglru_init_state(cfg: ModelConfig, batch: int, device):
+    return {"h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                             device=device),
+            "conv": torch.zeros((batch, cfg.conv1d_width - 1, cfg.lru_width),
+                                dtype=cfg.torch_dtype, device=device)}

@@ -3,34 +3,50 @@ per layer in an `nn.ModuleList`, a final norm and the (tied or untied)
 unembedding, with the prefill / decode entry points the serving engine
 uses.
 
-Caches keep the JAX package's pytree. Every ported configuration has a
-one-kind pattern, so all layers stack under "groups"/"p0" with the layer on
-the leading axis; layer i reads leaf[i]. The leaves are the kind's: "k", "v"
-(n_layers, batch, ctx, Hkv, hd) for global GQA; "s" (n_layers, batch,
-nh_pad, hs, hs) and "shift", "cshift" (n_layers, batch, 1, d_model) for
-RWKV6.
+Caches keep the JAX package's tree (its `groups`/`rem` layering): the
+config's block pattern repeats `n_groups` times, and pattern position j of
+every repetition stacks under "groups"/"p{j}" with the repetition on the
+leading axis; the layers left over (`pattern_groups()`'s remainder) sit
+under "rem"/"p{j}" without that axis. Layer i = g * len(pattern) + j reads
+groups/p{j}[g]; the remainder's layers follow. A one-kind pattern has no
+remainder, so all its layers stack under "groups"/"p0". The leaves are the
+kind's: "k", "v" (…, batch, ctx, Hkv, hd) for attention (a local layer's
+ctx is at most its window); "s" (…, batch, nh_pad, hs, hs) and "shift",
+"cshift" (…, batch, 1, d_model) for RWKV6; "h" (…, batch, lru_width) and
+"conv" (…, batch, conv1d_width - 1, lru_width) for RG-LRU.
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
 
 from .blocks import Block, block_decode, block_prefill
-from .config import ATTN_GLOBAL, RWKV6, ModelConfig
+from .config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
 from .layers import embed, make_norm, param, unembed
+
+
+HYBRID_PATTERN = (RGLRU, RGLRU, ATTN_LOCAL)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not serve
-    yet. It serves two families: dense global-GQA decoders with RMSNorm,
-    SwiGLU and tied embeddings (qwen3-0.6b), and attention-free RWKV6 with
+    yet. It serves three families: dense global-GQA decoders with RMSNorm,
+    SwiGLU and tied embeddings (qwen3-0.6b); attention-free RWKV6 with
     LayerNorm and untied embeddings (rwkv6-3b), whose FFN is the
-    channel-mix."""
+    channel-mix; and the Griffin hybrid — the pattern (RG-LRU, RG-LRU, local
+    attention) with RMSNorm, a gelu gated MLP, untied embeddings and no
+    qk-norm (recurrentgemma-9b)."""
     if cfg.block_pattern == (RWKV6,):
         family = (("norm", cfg.norm, "layernorm"),
                   ("tie_embeddings", cfg.tie_embeddings, False))
+    elif cfg.block_pattern == HYBRID_PATTERN:
+        family = (("norm", cfg.norm, "rmsnorm"),
+                  ("activation", cfg.activation, "gelu"),
+                  ("gated_mlp", cfg.gated_mlp, True),
+                  ("tie_embeddings", cfg.tie_embeddings, False),
+                  ("qk_norm", cfg.qk_norm, False))
     else:
         family = (("block_pattern", cfg.block_pattern, (ATTN_GLOBAL,)),
                   ("norm", cfg.norm, "rmsnorm"),
@@ -69,15 +85,36 @@ class LM(nn.Module):
         return self.embed.w.device
 
 
-def layer_cache(caches, i: int) -> Dict[str, torch.Tensor]:
-    return {n: leaf[i] for n, leaf in caches["groups"]["p0"].items()}
+def layer_places(cfg: ModelConfig) -> List[Tuple[str, str, Optional[int]]]:
+    """Where each layer sits in the tree, in layer order: ("groups",
+    "p{j}", g) for repetition g of the pattern, ("rem", "p{j}", None) for
+    the remainder."""
+    pat, n_groups, rem = cfg.pattern_groups()
+    return ([("groups", f"p{j}", g) for g in range(n_groups)
+             for j in range(len(pat))]
+            + [("rem", f"p{j}", None) for j in range(len(rem))])
 
 
-def stack_layers(per_layer: List[Dict[str, torch.Tensor]]) -> Dict:
-    """Per-layer cache leaves -> the cache tree, layers on the leading
-    axis."""
-    return {"groups": {"p0": {n: torch.stack([u[n] for u in per_layer])
-                              for n in per_layer[0]}}}
+def layer_cache(cfg: ModelConfig, caches, i: int) -> Dict[str, torch.Tensor]:
+    sec, key, g = layer_places(cfg)[i]
+    node = caches[sec][key]
+    return dict(node) if g is None else {n: leaf[g] for n, leaf in
+                                         node.items()}
+
+
+def stack_layers(cfg: ModelConfig,
+                 per_layer: List[Dict[str, torch.Tensor]]) -> Dict:
+    """Per-layer cache leaves -> the cache tree: "groups" leaves stacked on
+    a leading repetition axis, "rem" leaves as they are."""
+    by_key: Dict[Tuple[str, str], List[Dict[str, torch.Tensor]]] = {}
+    for (sec, key, _), leaves_ in zip(layer_places(cfg), per_layer):
+        by_key.setdefault((sec, key), []).append(leaves_)
+    tree: Dict[str, Dict] = {}
+    for (sec, key), ls in by_key.items():
+        tree.setdefault(sec, {})[key] = (
+            {n: torch.stack([u[n] for u in ls]) for n in ls[0]}
+            if sec == "groups" else ls[0])
+    return tree
 
 
 def lm_logits(lm: LM, h):
@@ -92,12 +129,12 @@ def lm_hidden(lm: LM, cfg: ModelConfig, tokens, *, caches=None,
     h = embed(lm.embed.w, cfg, tokens).to(cfg.torch_dtype)
     outs = []
     for i, block in enumerate(lm.blocks):
-        prefix = None if caches is None else layer_cache(caches, i)
+        prefix = None if caches is None else layer_cache(cfg, caches, i)
         h, co = block_prefill(block, cfg, h, start_pos, cache=prefix,
                               kv_lens=kv_lens, prefix_start=prefix_start,
                               attention_impl=attention_impl)
         outs.append(co)
-    return lm.final_norm(h), stack_layers(outs)
+    return lm.final_norm(h), stack_layers(cfg, outs)
 
 
 def lm_prefill(lm: LM, cfg: ModelConfig, tokens, *, caches=None,
@@ -124,12 +161,13 @@ def lm_decode(lm: LM, cfg: ModelConfig, token, caches, position,
               kv_lens=None, ctx_limit=None, attention_impl: str = "torch"):
     """One decode step. token: (B,) int; caches as from `Model.init_cache`.
     Returns (logits (B,V), cache updates) — the new token's K/V only, in the
-    cache tree's layout with length 1, or the updated RWKV state."""
+    cache tree's layout with length 1, or the updated recurrent state."""
     h = embed(lm.embed.w, cfg, token[:, None]).to(cfg.torch_dtype)
     ups = []
     for i, block in enumerate(lm.blocks):
-        h, up = block_decode(block, cfg, h, position, layer_cache(caches, i),
+        h, up = block_decode(block, cfg, h, position,
+                             layer_cache(cfg, caches, i),
                              kv_lens=kv_lens, ctx_limit=ctx_limit,
                              attention_impl=attention_impl)
         ups.append(up)
-    return lm_logits(lm, lm.final_norm(h)[:, 0]), stack_layers(ups)
+    return lm_logits(lm, lm.final_norm(h)[:, 0]), stack_layers(cfg, ups)

@@ -9,9 +9,10 @@ attention kernels are held against their plain versions (float32 with TF32
 off: 2e-5; bfloat16: 2e-2), K3 against the step recurrence within 5e-5 of
 the result's magnitude (both widen bf16 inputs exactly and accumulate in
 fp32; only the order of the sums differs, and a long prefill whose decay is
-near 1 grows the state), each launch is counted, and the reduced models
-served through the kernels give the same greedy tokens as the torch
-paths."""
+near 1 grows the state), K4 against the step recurrence within 1e-5 (fp32)
+and 1e-5 of the result's magnitude (bf16 inputs, widened exactly), each
+launch is counted, and the reduced models served through the kernels give
+the same greedy tokens as the torch paths."""
 import numpy as np
 import pytest
 
@@ -24,11 +25,13 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, flash_decode_attention)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     flash_prefill_attention, prefill_attention_plain)
+from repro_torch.kernels.rglru import rglru_cuda, rglru_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 WKV_RTOL = 5e-5
+RGLRU_TOL = 1e-5  # tests/test_kernels.py::test_rglru_sweep
 
 
 @pytest.fixture
@@ -126,7 +129,8 @@ def test_engine_kernels_match_torch_path_and_count_launches(cuda):
     ops.reset_launch_counts()
     want = roll("torch")
     assert ops.launch_counts() == {"decode_attention": 0,
-                                   "prefill_attention": 0, "wkv6": 0}
+                                   "prefill_attention": 0, "wkv6": 0,
+                                   "rglru": 0}
     assert roll("cuda") == want
     counts = ops.launch_counts()
     assert counts["decode_attention"] == 5 * cfg.n_layers
@@ -220,4 +224,93 @@ def test_rwkv_engine_kernel_matches_torch_path_and_counts_launches(cuda):
     assert roll("cuda") == want
     counts = ops.launch_counts()
     assert counts == {"decode_attention": 0, "prefill_attention": 0,
-                      "wkv6": 2 * cfg.n_layers}
+                      "wkv6": 2 * cfg.n_layers, "rglru": 0}
+
+
+def _rglru_inputs(dev, dtype, seed, B, S, W):
+    """tests/test_kernels.py's distributions: log_a = -exp(0.3 N) (decay in
+    (0, 1)), b ~ 0.5 N, h0 ~ 0.2 N; log_a and b in `dtype`."""
+    rs = np.random.RandomState(seed)
+    n = lambda shape, sc: torch.from_numpy(  # noqa: E731
+        (rs.standard_normal(shape) * sc).astype(np.float32)).to(dev)
+    dt = getattr(torch, dtype)
+    return (-torch.exp(n((B, S, W), 0.3))).to(dt), n((B, S, W), 0.5).to(dt), \
+        n((B, W), 0.2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,S,W", [(1, 1, 4096), (1, 24, 4096),
+                                   (1, 150, 4096), (1, 512, 4096),
+                                   (2, 200, 2560), (3, 37, 100)])
+def test_cuda_rglru_kernel_matches_plain(cuda, dtype, B, S, W):
+    """S = 1, the served shapes, a W that is not a multiple of the block
+    and an S that is not a multiple of the tile."""
+    args = _rglru_inputs(cuda, dtype, 0, B, S, W)
+    before = rglru_cuda.launches
+    got = ops.rglru_scan(*args)
+    want = rglru_plain(*args)
+    torch.cuda.synchronize()
+    assert rglru_cuda.launches == before + 1
+    assert got[0].dtype == torch.float32 and got[0].shape == (B, S, W)
+    assert got[1].shape == (B, W)
+    for g, w in zip(got, want):
+        assert float((g - w).abs().max()) < RGLRU_TOL * max(
+            1.0, float(w.abs().max()))
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_mixed_input_dtypes(cuda):
+    la, _, h0 = _rglru_inputs(cuda, "float32", 1, 2, 40, 96)
+    b = _rglru_inputs(cuda, "bfloat16", 2, 2, 40, 96)[1]
+    got, want = rglru_cuda(la, b, h0), rglru_plain(la, b, h0)
+    assert max(float((g - w).abs().max()) for g, w in zip(got, want)) \
+        < RGLRU_TOL
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_refuses_what_the_kernel_does_not_take(cuda):
+    la, b, h0 = _rglru_inputs(cuda, "float32", 3, 1, 8, 64)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        rglru_cuda(la.half(), b, h0)
+    with pytest.raises(ValueError, match="h0 must be float32"):
+        rglru_cuda(la, b, h0.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="contiguous"):
+        rglru_cuda(la.transpose(1, 2).contiguous().transpose(1, 2), b, h0)
+    with pytest.raises(ValueError, match="S >= 1"):
+        rglru_cuda(la[:, :0], b[:, :0], h0)
+    with pytest.raises(ValueError, match=r"\(B, S, W\)"):
+        rglru_cuda(la[0], b[0], h0)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        rglru_cuda(la.cpu(), b.cpu(), h0.cpu())
+
+
+@pytest.mark.gpu
+def test_recurrentgemma_engine_kernel_matches_torch_path_and_counts(cuda):
+    """The reduced recurrentgemma-9b on the card (window widened to 256,
+    slots of 256): turn-1 prefill, an append and a decode chunk give the
+    same greedy tokens through K4 as through the log-depth scan; K4 ran
+    once per RG-LRU layer per prefill, and K1/K2 never (every attention
+    layer is local)."""
+    cfg = get_reduced("recurrentgemma-9b").scaled(window=256)
+    params = build_model(cfg).init(0, cuda)
+
+    def roll(impl):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=256,
+                            attention_impl=impl)
+        s = eng.kv.acquire()
+        t, _ = eng.prefill_conversation(s, np.arange(7, 120, dtype=np.int32))
+        t2, _ = eng.append_prefill(s, np.arange(60, 75, dtype=np.int32))
+        nt = np.zeros(2, np.int32)
+        em = np.zeros(2, bool)
+        nt[s], em[s] = int(t2), True
+        seq, _ = eng.decode_steps(nt, em, 5)
+        return [int(t), int(t2)] + [int(x) for x in seq[:, s]]
+
+    ops.reset_launch_counts()
+    want = roll("torch")
+    assert ops.launch_counts()["rglru"] == 0
+    assert roll("cuda") == want
+    assert ops.launch_counts() == {"decode_attention": 0,
+                                   "prefill_attention": 0, "wkv6": 0,
+                                   "rglru": 2 * 2}

@@ -39,8 +39,8 @@ def _imports(path: Path):
 def test_port_sources_are_found():
     names = {p.name for p in FILES}
     assert {"replica.py", "server.py", "decode_attention.py",
-            "prefill_attention.py", "wkv6.py", "recurrent.py",
-            "chip_smoke.py"} <= names
+            "prefill_attention.py", "wkv6.py", "rglru.py", "recurrent.py",
+            "recurrentgemma_9b.py", "chip_smoke.py"} <= names
     assert len(FILES) > 25
 
 
