@@ -11,17 +11,23 @@ Phases, each raising on failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
   2. build: every kernel from `src/repro_torch/kernels/csrc`, one nvcc per
-     source started together, with the seconds and `-Xptxas -v`;
+     source started together, with the seconds and `-Xptxas -v`, and the
+     count of tensor-core (`HMMA`) instructions in K2's SASS, which must
+     not be 0;
   3. kernels: K1 (flash-decode) and K2 (flash-prefill) at the qwen path's
      shapes, K3 (WKV6) at the rwkv6 path's, K4 (RG-LRU scan) at the
      recurrentgemma path's, against their plain versions in fp32 (TF32 off)
      and with bf16 inputs, with kernel, plain and library (SDPA for K1/K2,
      timed only; none for K3 and K4) milliseconds from CUDA events after a
-     warm-up (the median of five windows), and each kernel's bound from its
-     shapes;
+     warm-up (the median of five windows), the kernel's and the library's
+     device time per call (`device_ms`: 20 or more calls captured in one
+     CUDA graph and replayed between events, the median of five replays,
+     the calls cycling over enough copies of the inputs that each reads
+     them from HBM, not from L2), and each kernel's bound from its shapes;
   4. full-width qwen3-0.6b in fp32 from a seeded torch init: prefill and a
      short decode rollout with attention_impl "cuda" and "torch" — logits
-     within tolerance, greedy tokens equal;
+     within tolerance, greedy tokens equal, K1 and K2 each launched once
+     per layer (28) by one decode step and one prefill;
   5. full-width qwen3-0.6b in bf16 served with strict accounting: (a) the
      golden-trace setup, whose summary must equal
      tests/golden/decode_golden_trace.json exactly; (b) the qwen path, one
@@ -48,10 +54,17 @@ standard output are the script's wall time, the card's name and power
 limit, one JSON object with a record per kernel, and `{"ok": true,
 "device": {...}}`. Without a card, or without the repository around it, it
 exits non-zero before printing any result.
+
+    python3 chip_smoke.py --kernels-only
+
+runs phases 1-3 alone and ends with the card line and the kernels' JSON
+line (no ok line): the quick way to time the kernels of a tree.
 """
 from __future__ import annotations
 
 import json
+import math
+import re
 import shutil
 import subprocess
 import sys
@@ -63,6 +76,7 @@ SRC = ROOT / "src"
 GOLDEN = ROOT / "tests" / "golden" / "decode_golden_trace.json"
 
 HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
+L2_BYTES = 50 * 2**20          # H100 SXM L2
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense tensor
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 LOGIT_TOL = 1e-3               # fp32 full-width logits, cuda vs torch impl
@@ -127,6 +141,60 @@ def cuda_ms(fn, warmup: int = 5, iters: int = 20, windows: int = 5) -> float:
     return statistics.median(times)
 
 
+def device_ms(make, inputs, nbytes: float, iters: int = 20,
+              windows: int = 5) -> float:
+    """Device milliseconds per call of `make(*inputs)()`: back-to-back calls
+    captured in one CUDA graph, the graph replayed between CUDA events, the
+    median of `windows` replays. No host dispatch lands inside a window, so
+    this is the device's time even for a kernel shorter than its wrapper's
+    host path (which is what `cuda_ms` times there). The calls take in turn
+    enough clones of `inputs` that the others move more than twice the L2's
+    bytes (`nbytes` a call) between two uses of one, so each call reads its
+    inputs from HBM, as `bound_ms` assumes and as the served step does."""
+    import statistics
+
+    import torch
+    n_copies = 1 + math.ceil(2 * L2_BYTES / nbytes)
+    copies = [inputs] + [tuple(t.clone() for t in inputs)
+                         for _ in range(n_copies - 1)]
+    fns = [make(*c) for c in copies]
+    calls = n_copies * math.ceil(iters / n_copies)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm up off the capture, as PyTorch asks
+        for fn in fns[:3]:
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(calls):
+            fns[i % n_copies]()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(windows):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    del graph, fns, copies
+    return statistics.median(times)
+
+
+def sass_count(lib, opcode: str) -> int:
+    """How many instructions of `opcode` the SASS of a built library holds
+    (`cuobjdump -sass`, from the toolkit that holds nvcc)."""
+    from repro_torch.kernels import _build
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    return sum(1 for line in sass.splitlines()
+               if re.search(rf"\b{opcode}\b", line))
+
+
 def bound_ms(nbytes: float, flops: float, dtype: str):
     """dtype names the arithmetic's peak rate (fp32 CUDA cores or bf16
     tensor cores)."""
@@ -145,7 +213,7 @@ def max_err(a, b) -> float:
 def check_decode(torch, dtype, B, S_buf, S, H, Hkv, D, lens, seed=0):
     """K1 on a cache view trimmed from S_buf to S positions (batch stride of
     the full buffer, as the engine passes it), with the new token as the
-    second branch. Returns (err, kernel_ms, plain_ms, library_ms, bound)."""
+    second branch. Returns the kernel's record (`_record`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (decode_attention_plain,
@@ -167,29 +235,50 @@ def check_decode(torch, dtype, B, S_buf, S, H, Hkv, D, lens, seed=0):
                              f"max|err| {err} >= {TOL[dtype]}")
     assert ops.decode_attention(q, k, v, lengths, impl="cuda", k_new=kn,
                                 v_new=vn).shape == q.shape
-    k_ms = cuda_ms(lambda: flash_decode_attention(q, k, v, lengths, kn, vn))
+    live = lengths.clamp(max=S)
+    live_keys = int(live.sum()) + B
+    isz = torch.finfo(dt).bits // 8
+    nbytes = (2 * B * H * D + 2 * live_keys * Hkv * D) * isz + 4 * B
+    flops = 4.0 * live_keys * H * D
+
+    def kern(q, kb, vb, kn, vn):
+        return lambda: flash_decode_attention(q, kb[:, :S], vb[:, :S],
+                                              lengths, kn, vn)
+    inputs = (q, kb, vb, kn, vn)
+    k_ms, k_dev = cuda_ms(kern(*inputs)), device_ms(kern, inputs, nbytes)
     p_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lengths, kn, vn))
     # yardstick: one SDPA call over the same live keys (KV heads expanded
     # and the new token appended before timing; a boolean length mask)
     G = H // Hkv
     kc = torch.cat([k, kn[:, None]], 1).repeat_interleave(G, 2).transpose(1, 2)
     vc = torch.cat([v, vn[:, None]], 1).repeat_interleave(G, 2).transpose(1, 2)
-    live = lengths.clamp(max=S)
     pos = torch.arange(S + 1, device="cuda")
     mask = ((pos[None] < live[:, None]) | (pos[None] == S))[:, None, None]
     q4 = q[:, :, None]
-    lib_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
-        q4, kc, vc, attn_mask=mask))
-    live_keys = int(live.sum()) + B
-    isz = torch.finfo(dt).bits // 8
-    nbytes = (2 * B * H * D + 2 * live_keys * Hkv * D) * isz + 4 * B
-    flops = 4.0 * live_keys * H * D
-    return err, k_ms, p_ms, lib_ms, bound_ms(nbytes, flops, dtype)
+
+    def sdpa(q4, kc, vc):
+        return lambda: F.scaled_dot_product_attention(q4, kc, vc,
+                                                      attn_mask=mask)
+    return _record(err, k_ms, k_dev, p_ms, cuda_ms(sdpa(q4, kc, vc)),
+                   device_ms(sdpa, (q4, kc, vc), nbytes),
+                   bound_ms(nbytes, flops, dtype))
+
+
+def _record(err, k_ms, k_dev, p_ms, l_ms, l_dev, bound):
+    return dict(max_abs_err=err, ms=k_ms, device_ms=k_dev, plain_ms=p_ms,
+                library_ms=l_ms, library_device_ms=l_dev, bound_ms=bound[0],
+                bound_by=bound[1])
+
+
+def _times(r) -> str:
+    return (f"kernel {r['ms']:.4f} ms (device {r['device_ms']:.4f})  plain "
+            f"{r['plain_ms']:.4f} ms  library {r['library_ms']:.4f} ms "
+            f"(device {r['library_device_ms']:.4f})  bound "
+            f"{r['bound_ms']:.5f} ms ({r['bound_by']})")
 
 
 def check_prefill(torch, dtype, B, S, H, Hkv, D, window, seed=0):
-    """K2 at one turn-1 shape. Returns (err, kernel_ms, plain_ms,
-    library_ms, bound)."""
+    """K2 at one turn-1 shape. Returns the kernel's record (`_record`)."""
     import torch.nn.functional as F
     from repro_torch.kernels.prefill_attention import (flash_prefill_attention,
                                                        prefill_attention_plain)
@@ -204,26 +293,44 @@ def check_prefill(torch, dtype, B, S, H, Hkv, D, window, seed=0):
     if not err < TOL[dtype]:
         raise AssertionError(f"K2 {dtype} B={B} S={S} window={window}: "
                              f"max|err| {err} >= {TOL[dtype]}")
-    k_ms = cuda_ms(lambda: flash_prefill_attention(q, k, v, window=window))
+    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
+    isz = torch.finfo(dt).bits // 8
+    nbytes = B * S * (2 * H + 2 * Hkv) * D * isz
+    flops = 4.0 * B * H * pairs * D
+
+    def kern(q, k, v):
+        return lambda: flash_prefill_attention(q, k, v, window=window)
+    k_ms, k_dev = cuda_ms(kern(q, k, v)), device_ms(kern, (q, k, v), nbytes)
     p_ms = cuda_ms(lambda: prefill_attention_plain(q, k, v, window=window))
     G = H // Hkv
     qt = q.transpose(1, 2)
     kt = k.repeat_interleave(G, 2).transpose(1, 2)
     vt = v.repeat_interleave(G, 2).transpose(1, 2)
-    if window:
-        i = torch.arange(S, device="cuda")
-        wmask = (i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
-                                                     attn_mask=wmask)
-    else:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt,  # noqa: E731
-                                                     is_causal=True)
-    lib_ms = cuda_ms(lib)
-    pairs = sum(min(i + 1, window) if window else i + 1 for i in range(S))
-    isz = torch.finfo(dt).bits // 8
-    nbytes = B * S * (2 * H + 2 * Hkv) * D * isz
-    flops = 4.0 * B * H * pairs * D
-    return err, k_ms, p_ms, lib_ms, bound_ms(nbytes, flops, dtype)
+    i = torch.arange(S, device="cuda")
+    wmask = ((i[None] <= i[:, None]) & (i[None] > i[:, None] - window)
+             if window else None)
+
+    def sdpa(qt, kt, vt):
+        return lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=wmask, is_causal=not window)
+    return _record(err, k_ms, k_dev, p_ms, cuda_ms(sdpa(qt, kt, vt)),
+                   device_ms(sdpa, (qt, kt, vt), nbytes),
+                   bound_ms(nbytes, flops, dtype))
+
+
+def _k1_grid(B, Hkv, S, D) -> str:
+    """The blocks K1 launches at this shape, from the wrapper's planner."""
+    from repro_torch.kernels import decode_attention as k1
+    n, length = k1.plan_decode_splits(B, Hkv, S, D)
+    return f"grid {n} x {B * Hkv} = {n * B * Hkv} blocks of {length} keys"
+
+
+def decode_lengths(S: int):
+    """16 slots' live lengths at a ctx bucket of S: 1, exactly S, and an
+    idle slot longer than S among them."""
+    lens = [1, S, S - 1, max(1, S // 2), 3 * S // 4, 5, S // 3 + 1, S]
+    return lens + [min(2 * S, 1024) if S < 1024 else 1024, 17 % S + 1,
+                   S // 5 + 2, 1, S, 2, S // 2 + 3, 7]
 
 
 def phase_kernels(torch, cfg):
@@ -237,37 +344,23 @@ def phase_kernels(torch, cfg):
     recs = {}
     # decode: 16 slots of a max_ctx=1024 buffer read through ctx buckets;
     # lengths include 1, exactly S, and an idle slot longer than S
-    dec_cases = []
-    for S in (64, 256, 1024):
-        lens = [1, S, S - 1, max(1, S // 2), 3 * S // 4, 5, S // 3 + 1, S]
-        lens += [min(2 * S, 1024) if S < 1024 else 1024, 17 % S + 1,
-                 S // 5 + 2, 1, S, 2, S // 2 + 3, 7]
-        dec_cases.append((16, 1024, S, lens))
+    dec_cases = [(16, 1024, S, decode_lengths(S)) for S in (64, 256, 1024)]
     for dtype in ("float32", "bfloat16"):
         for B, S_buf, S, lens in dec_cases:
-            err, k_ms, p_ms, l_ms, (bms, by) = check_decode(
-                torch, dtype, B, S_buf, S, H, Hkv, D, lens)
-            log(f"  K1 {dtype:8s} B={B} S={S:4d}: max|err| {err:.3e}  "
-                f"kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library "
-                f"{l_ms:.4f} ms  bound {bms:.5f} ms ({by})")
+            r = check_decode(torch, dtype, B, S_buf, S, H, Hkv, D, lens)
+            log(f"  K1 {dtype:8s} B={B} S={S:4d} {_k1_grid(B, Hkv, S, D)}: "
+                f"max|err| {r['max_abs_err']:.3e}  {_times(r)}")
             if dtype == "bfloat16" and S == 256:
-                recs["decode_attention"] = dict(
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                    bound_ms=bms, bound_by=by)
-    pre_cases = [(1, 64, 0), (1, 200, 0), (1, 512, 0), (1, 1024, 0),
-                 (2, 256, 96)]
+                recs["decode_attention"] = r
+    pre_cases = [(1, 64, 0), (1, 200, 0), (1, 256, 0), (1, 512, 0),
+                 (1, 1024, 0), (2, 256, 96)]
     for dtype in ("float32", "bfloat16"):
         for B, S, window in pre_cases:
-            err, k_ms, p_ms, l_ms, (bms, by) = check_prefill(
-                torch, dtype, B, S, H, Hkv, D, window)
+            r = check_prefill(torch, dtype, B, S, H, Hkv, D, window)
             log(f"  K2 {dtype:8s} B={B} S={S:4d} window={window:3d}: "
-                f"max|err| {err:.3e}  kernel {k_ms:.4f} ms  plain "
-                f"{p_ms:.4f} ms  library {l_ms:.4f} ms  bound {bms:.5f} ms "
-                f"({by})")
+                f"max|err| {r['max_abs_err']:.3e}  {_times(r)}")
             if dtype == "bfloat16" and S == 512 and not window:
-                recs["prefill_attention"] = dict(
-                    max_abs_err=err, ms=k_ms, plain_ms=p_ms, library_ms=l_ms,
-                    bound_ms=bms, bound_by=by)
+                recs["prefill_attention"] = r
     return recs
 
 
@@ -276,7 +369,7 @@ def check_wkv6(torch, dtype, B, S, H, hs, n_live=None, seed=0):
     model's distributions (logw = -exp(x), decay in (0, 1)). Heads from
     n_live on are dead pad heads (r zeroed, as the model does). Returns
     (max|err|, the same relative to max(1, max|plain|), kernel_ms,
-    plain_ms, bound)."""
+    kernel device_ms, plain_ms, bound)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -299,14 +392,15 @@ def check_wkv6(torch, dtype, B, S, H, hs, n_live=None, seed=0):
         raise AssertionError(f"K3 {dtype} B={B} S={S} H={H}: relative "
                              f"max|err| {rel} >= {WKV_RTOL}")
     assert ops.wkv6(*args)[0].shape == (B, S, H, hs)
-    k_ms = cuda_ms(lambda: wkv6_cuda(*args))
-    p_ms = cuda_ms(lambda: wkv6_plain(*args), warmup=1,
-                   iters=2 if S > 100 else 10)
     isz = torch.finfo(dt).bits // 8
     n = B * S * H * hs
     nbytes = 3 * n * isz + 2 * 4 * n + 4 * H * hs + 2 * 4 * B * H * hs * hs
     flops = 5.0 * n * hs
-    return err, rel, k_ms, p_ms, bound_ms(nbytes, flops, "float32")
+    kern = lambda *a: lambda: wkv6_cuda(*a)  # noqa: E731
+    k_ms, k_dev = cuda_ms(kern(*args)), device_ms(kern, args, nbytes)
+    p_ms = cuda_ms(lambda: wkv6_plain(*args), warmup=1,
+                   iters=2 if S > 100 else 10)
+    return err, rel, k_ms, k_dev, p_ms, bound_ms(nbytes, flops, "float32")
 
 
 def phase_wkv6(torch, cfg):
@@ -321,22 +415,23 @@ def phase_wkv6(torch, cfg):
         for B, S, Hk, live in ((1, 1, H, None), (1, 24, H, None),
                                (1, 150, H, None), (1, 512, H, None),
                                (2, 200, 48, H)):
-            err, rel, k_ms, p_ms, (bms, by) = check_wkv6(
+            err, rel, k_ms, k_dev, p_ms, (bms, by) = check_wkv6(
                 torch, dtype, B, S, Hk, hs, live)
             log(f"  K3 {dtype:8s} B={B} S={S:4d} H={Hk}: max|err| "
-                f"{err:.3e} (relative {rel:.3e})  kernel {k_ms:.4f} ms  "
-                f"plain {p_ms:.4f} ms  library none  bound {bms:.5f} ms "
-                f"({by})")
+                f"{err:.3e} (relative {rel:.3e})  kernel {k_ms:.4f} ms "
+                f"(device {k_dev:.4f})  plain {p_ms:.4f} ms  library none  "
+                f"bound {bms:.5f} ms ({by})")
             if dtype == "bfloat16" and S == 150:
-                rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                           library_ms=None, bound_ms=bms, bound_by=by)
+                rec = dict(max_abs_err=err, ms=k_ms, device_ms=k_dev,
+                           plain_ms=p_ms, library_ms=None,
+                           library_device_ms=None, bound_ms=bms, bound_by=by)
     return {"wkv6": rec}
 
 
 def check_rglru(torch, dtype, B, S, W, seed=0):
     """K4 at one prefill shape, log_a and b in `dtype`, h0 fp32, with the
     reference test's distributions (log_a = -exp(0.3 N): decays in (0, 1)).
-    Returns (max|err|, kernel_ms, plain_ms, bound)."""
+    Returns (max|err|, kernel_ms, kernel device_ms, plain_ms, bound)."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -357,14 +452,15 @@ def check_rglru(torch, dtype, B, S, W, seed=0):
         raise AssertionError(f"K4 {dtype} B={B} S={S} W={W}: max|err| {err}"
                              f" >= {RGLRU_TOL * scale}")
     assert ops.rglru_scan(*args)[0].shape == (B, S, W)
-    k_ms = cuda_ms(lambda: rglru_cuda(*args))
-    p_ms = cuda_ms(lambda: rglru_plain(*args), warmup=1,
-                   iters=2 if S > 100 else 10)
     isz = torch.finfo(dt).bits // 8
     n = B * S * W
     nbytes = 2 * n * isz + 4 * n + 2 * 4 * B * W
     ops_ = 3.0 * n  # exp, multiply, add per element
-    return err, k_ms, p_ms, bound_ms(nbytes, ops_, "float32")
+    kern = lambda *a: lambda: rglru_cuda(*a)  # noqa: E731
+    k_ms, k_dev = cuda_ms(kern(*args)), device_ms(kern, args, nbytes)
+    p_ms = cuda_ms(lambda: rglru_plain(*args), warmup=1,
+                   iters=2 if S > 100 else 10)
+    return err, k_ms, k_dev, p_ms, bound_ms(nbytes, ops_, "float32")
 
 
 def phase_rglru(torch, cfg):
@@ -379,13 +475,15 @@ def phase_rglru(torch, cfg):
     for dtype in ("float32", "bfloat16"):
         for B, S, Wk in ((1, 1, W), (1, 24, W), (1, 150, W), (1, 512, W),
                          (2, 200, 2560)):
-            err, k_ms, p_ms, (bms, by) = check_rglru(torch, dtype, B, S, Wk)
+            err, k_ms, k_dev, p_ms, (bms, by) = check_rglru(torch, dtype, B,
+                                                            S, Wk)
             log(f"  K4 {dtype:8s} B={B} S={S:4d} W={Wk}: max|err| {err:.3e}"
-                f"  kernel {k_ms:.4f} ms  plain {p_ms:.4f} ms  library none"
-                f"  bound {bms:.5f} ms ({by})")
+                f"  kernel {k_ms:.4f} ms (device {k_dev:.4f})  plain "
+                f"{p_ms:.4f} ms  library none  bound {bms:.5f} ms ({by})")
             if dtype == "float32" and S == 150:
-                rec = dict(max_abs_err=err, ms=k_ms, plain_ms=p_ms,
-                           library_ms=None, bound_ms=bms, bound_by=by)
+                rec = dict(max_abs_err=err, ms=k_ms, device_ms=k_dev,
+                           plain_ms=p_ms, library_ms=None,
+                           library_device_ms=None, bound_ms=bms, bound_by=by)
     return {"rglru": rec}
 
 
@@ -395,6 +493,7 @@ def phase_rglru(torch, cfg):
 def phase_fp32_parity(torch, cfg, device, n_decode=8):
     import numpy as np
     from repro_torch.engine import ReplicaEngine
+    from repro_torch.kernels import ops
     from repro_torch.models import build_model
     cfg = cfg.scaled(dtype="float32")
     log(f"phase 4: {cfg.name} full width fp32 ({cfg.n_layers} layers), "
@@ -404,6 +503,7 @@ def phase_fp32_parity(torch, cfg, device, n_decode=8):
     prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, 300)
     toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
     logits, caches = {}, {}
+    ops.reset_launch_counts()
     for impl in ("cuda", "torch"):
         logits[impl], caches[impl] = model.prefill(params, toks,
                                                    attention_impl=impl)
@@ -416,7 +516,14 @@ def phase_fp32_parity(torch, cfg, device, n_decode=8):
     dl = {impl: model.decode_step(params, nxt, cache, pos, kv_lens=pos,
                                   attention_impl=impl)[0]
           for impl in ("cuda", "torch")}
+    counts = ops.launch_counts()
+    want = {"decode_attention": cfg.n_layers,
+            "prefill_attention": cfg.n_layers, "wkv6": 0, "rglru": 0}
+    if counts != want:
+        raise AssertionError(f"one prefill and one decode step launched "
+                             f"{counts}, not {want}")
     err_d = max_err(dl["cuda"], dl["torch"])
+    log(f"  launches of one prefill + one decode step {counts}")
     log(f"  logits max|err| prefill {err_p:.3e}, decode {err_d:.3e} "
         f"(tol {LOGIT_TOL})")
     if not (err_p < LOGIT_TOL and err_d < LOGIT_TOL):
@@ -726,7 +833,14 @@ def phase_rg_serve(torch, cfg, device, card):
     return launches
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1-3 alone (build, check and time the "
+                    "kernels) and print their JSON line, without the "
+                    "served paths and without the ok line")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
@@ -759,6 +873,11 @@ def main() -> int:
         for line in text.strip().splitlines():
             log(f"  [{name}] {line.strip()}")
     _build.ensure_built()
+    hmma = sass_count(_build.lib_path("prefill_attention"), "HMMA")
+    log(f"  [prefill_attention] {hmma} HMMA (tensor-core) instructions in "
+        f"the SASS (cuobjdump -sass)")
+    if hmma == 0:
+        raise AssertionError("K2's library has no tensor-core instruction")
 
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
@@ -766,6 +885,12 @@ def main() -> int:
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
+    if args.kernels_only:
+        log(f"chip_smoke --kernels-only wall "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"kernels": recs}))
+        return 0
     phase_fp32_parity(torch, cfg, device)
     launches = phase_serve(torch, cfg, device, card)
     phase_rwkv_fp32_parity(torch, rcfg, device)

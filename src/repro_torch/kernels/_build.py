@@ -53,14 +53,14 @@ def nvcc() -> str:
                        "first use and need the CUDA toolkit")
 
 
-def _lib_path(name: str) -> Path:
+def lib_path(name: str) -> Path:
     h = hashlib.sha256(SOURCES[name].read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def _start(name: str) -> Optional[Tuple[subprocess.Popen, Path, Path]]:
-    out = _lib_path(name)
+    out = lib_path(name)
     if out.exists():
         return None
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -98,7 +98,7 @@ def load(name: str) -> ctypes.CDLL:
         job = _start(name)
         if job is not None:
             _finish(name, job)
-        lib = ctypes.CDLL(str(_lib_path(name)))
+        lib = ctypes.CDLL(str(lib_path(name)))
         _LIBS[name] = lib
     return lib
 

@@ -1,4 +1,5 @@
-// K1: flash-decode GQA attention for the decode tail, written for sm_90a.
+// K1: split-KV flash-decode GQA attention for the decode tail, written for
+// sm_90a.
 //
 // Replaces: the Pallas TPU kernel `flash_decode_attention`
 // (src/repro/kernels/decode_attention.py, body `_decode_kernel`).
@@ -10,37 +11,83 @@
 // when k_new / v_new are given, to its freshly produced token as one more key
 // (the two-branch form of the jnp `decode_attention`): the new token is never
 // scattered into the cache first, so no index can land past the buffer. The
-// softmax is online in fp32 and the sum is normalised by max(l, 1e-20), as the
-// Pallas kernel does.
+// softmax is online in fp32 with a finite sentinel (-1e30) and the sum is
+// normalised by max(l, 1e-20), as the Pallas kernel does: a row with no key
+// gives 0, never NaN.
 //
 // What bounds it on the H100: bytes. Every cache element is read once and
 // used for G = H / Hkv query heads, so at decode it does ~2·G flops per byte
 // read — far below the ~295 flop/byte ridge of the card. The least time is
-// B·len·Hkv·D·2·itemsize bytes over 3.35 TB/s.
+// B·len·Hkv·D·2·itemsize bytes over 3.35 TB/s: ~5 us for 16 slots of 256
+// keys at qwen3-0.6b's widths. What keeps a kernel from it at that size is
+// latency: one block per (sequence, KV head) is 128 blocks on 132 SMs, each
+// walking its keys in dependent rounds of loads.
 //
-// What the design does about it: one block per (KV head, sequence), so the G
-// query heads that share a KV head share every K/V row fetched — each byte is
-// read once. The loop stops at the sequence's live length, so the dead tail
-// of the buffer is never fetched (the Pallas kernel clamps its block index map
-// for the same reason). Each warp streams its own share of the keys with
-// kUnroll rows in flight, a lane holds D/32 contiguous elements of a row, and
-// the four warps' partial softmax states are merged once at the end through
-// shared memory. Not done yet: split-KV across blocks for small B·Hkv, and
-// 16-byte vector loads.
+// What the design does about it:
+// - Split-KV. The key axis of each (sequence, KV head) is cut into n_split
+//   ranges of split_len keys over S + 1 positions (the live cache, then the
+//   new token at position len), one block each, so the grid is
+//   n_split x Hkv x B. The wrapper plans the split from the shapes alone,
+//   never from `lengths`, so a launch needs no host sync and can be
+//   captured in a CUDA graph. A block whose range starts past its
+//   sequence's live keys writes an empty partial (m = -1e30, l = 0) and
+//   returns; the loop of a live block stops at the live length, so the dead
+//   tail of the buffer is never fetched.
+// - The G query heads that share a KV head share every K/V row a block
+//   fetches: each byte is read once.
+// - 16-byte vector loads: a lane holds VEC contiguous elements of a row
+//   (8 bf16 or 4 fp32; 4 bf16 when G = 16, to bound the registers), LPR =
+//   D / VEC lanes cover a row, so a warp instruction loads 32 / LPR rows
+//   (two at D = 128 bf16). Each warp issues the K and V loads of UNROLL
+//   such instructions before it uses any of them, so a block keeps up to
+//   64 rows in flight, and one online-softmax rescale covers them all.
+// - The lanes' and warps' partial softmax states are merged by shuffles and
+//   through shared memory. With one split the block writes the output;
+//   otherwise it writes (m, l, unnormalised acc) in fp32 scratch that the
+//   wrapper allocates, and a second kernel from the same entry point merges
+//   the splits.
+// Not done yet: a persistent grid that walks (sequence, KV head, split)
+// work items, which would also fold the combine into the same launch.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
 
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kUnroll = 4;  // keys each warp has in flight
 constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
+template <int BYTES>
+struct Word;
+template <>
+struct Word<16> {
+  using type = uint4;
+};
+template <>
+struct Word<8> {
+  using type = uint2;
+};
+
+template <typename T, int VEC>
+__device__ __forceinline__ void widen(const typename Word<VEC * sizeof(T)>::type& w,
+                                      float (&f)[VEC]) {
+  if constexpr (sizeof(T) == 4) {
+    const float* p = reinterpret_cast<const float*>(&w);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) f[e] = p[e];
+  } else {
+    const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
+#pragma unroll
+    for (int e = 0; e < VEC / 2; ++e) {
+      const float2 t = __bfloat1622float2(p[e]);
+      f[2 * e] = t.x;
+      f[2 * e + 1] = t.y;
+    }
+  }
 }
+
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
@@ -51,105 +98,173 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 template <typename T, int D, int G>
+struct DecodeShape {
+  // elements per lane: one 16-byte load, or 8 bytes of bf16 when G = 16
+  static constexpr int VEC = (16 / (int)sizeof(T)) < 64 / G
+                                 ? 16 / (int)sizeof(T) : 64 / G;
+  static constexpr int LPR = D / VEC;   // lanes per row
+  static constexpr int RPW = 32 / LPR;  // rows per warp instruction
+  // row loads each warp has in flight per round: more when a lane's state
+  // (G x VEC query and accumulator elements) is small
+  static constexpr int UNROLL = G * VEC <= 16 ? 8 : (G * VEC <= 32 ? 4 : 2);
+  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row split");
+};
+
+// One block per (split, KV head, sequence).
+template <typename T, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, const T* __restrict__ k_new,
-              const T* __restrict__ v_new, const int* __restrict__ lengths,
-              T* __restrict__ out, int S, int Hkv, long long kv_stride_b,
-              float scale) {
-  constexpr int EPL = D >= 32 ? D / 32 : 1;  // row elements per lane
-  const int n = blockIdx.x;                  // KV head
-  const int b = blockIdx.y;                  // sequence
+decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                    const T* __restrict__ v, const T* __restrict__ k_new,
+                    const T* __restrict__ v_new,
+                    const int* __restrict__ lengths, T* __restrict__ out,
+                    float* __restrict__ part_ml, float* __restrict__ part_acc,
+                    int S, int Hkv, long long kv_stride_b, int split_len,
+                    float scale_log2) {
+  using Sh = DecodeShape<T, D, G>;
+  constexpr int VEC = Sh::VEC, LPR = Sh::LPR, RPW = Sh::RPW, U = Sh::UNROLL;
+  using W = typename Word<VEC * sizeof(T)>::type;
+  const int split = blockIdx.x;
+  const int n = blockIdx.y;  // KV head
+  const int b = blockIdx.z;  // sequence
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const bool lane_on = lane * EPL < D;  // D = 16: the upper half-warp idles
+  const int sub = lane / LPR;          // which of the warp's RPW rows
+  const int col = (lane % LPR) * VEC;  // first element of the lane
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
-  const bool has_new = k_new != nullptr;
-  const int n_keys = len + (has_new ? 1 : 0);
-
+  const int n_keys = len + (k_new != nullptr ? 1 : 0);
+  const int j0 = split * split_len;
+  const int j1 = min(j0 + split_len, n_keys);
+  const bool direct = gridDim.x == 1;
   const long long head = (long long)b * Hkv + n;  // (b, n) in (B, Hkv)
-  const T* qb = q + head * G * D;
-  float qr[G][EPL];
-#pragma unroll
-  for (int g = 0; g < G; ++g)
-#pragma unroll
-    for (int e = 0; e < EPL; ++e)
-      qr[g][e] = lane_on ? to_float(qb[g * D + lane * EPL + e]) : 0.f;
+  const long long BH = (long long)gridDim.z * Hkv * G;
 
-  float m[G], l[G], acc[G][EPL];
+  if (!direct && j0 >= n_keys) {  // nothing live in this range
+    if (threadIdx.x < G) {
+      float* ml = part_ml + 2 * ((long long)split * BH + head * G +
+                                 threadIdx.x);
+      ml[0] = kNegInf;
+      ml[1] = 0.f;
+    }
+    return;
+  }
+
+  float qr[G][VEC];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    float f[VEC];
+    widen<T, VEC>(*reinterpret_cast<const W*>(q + (head * G + g) * D + col),
+                  f);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) qr[g][e] = f[e] * scale_log2;
+  }
+  float m[G], l[G], acc[G][VEC];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < EPL; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
   }
 
   const long long row = (long long)Hkv * D;  // stride between positions
-  const T* kb = k + b * kv_stride_b + (long long)n * D;
-  const T* vb = v + b * kv_stride_b + (long long)n * D;
-  for (int base = warp * kUnroll; base < n_keys; base += kWarps * kUnroll) {
-    float kr[kUnroll][EPL], vr[kUnroll][EPL];
+  const T* kb = k + b * kv_stride_b + (long long)n * D + col;
+  const T* vb = v + b * kv_stride_b + (long long)n * D + col;
+  for (int base = j0; base < j1; base += kWarps * U * RPW) {
+    W kw[U], vw[U];
+    bool ok[U];
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      const int j = base + u;
-      const T* kp = nullptr;
-      const T* vp = nullptr;
+    for (int u = 0; u < U; ++u) {  // issue every load of the round first
+      const int j = base + (u * kWarps + warp) * RPW + sub;
+      ok[u] = j < j1;
+      kw[u] = W{};
+      vw[u] = W{};
       if (j < len) {
-        kp = kb + j * row;
-        vp = vb + j * row;
-      } else if (j < n_keys) {  // the new token, one past the live cache
-        kp = k_new + head * D;
-        vp = v_new + head * D;
+        kw[u] = __ldg(reinterpret_cast<const W*>(kb + j * row));
+        vw[u] = __ldg(reinterpret_cast<const W*>(vb + j * row));
+      } else if (ok[u]) {  // j == len: the new token, one past the cache
+        kw[u] = __ldg(reinterpret_cast<const W*>(k_new + head * D + col));
+        vw[u] = __ldg(reinterpret_cast<const W*>(v_new + head * D + col));
       }
+    }
+    float s[U][G];
 #pragma unroll
-      for (int e = 0; e < EPL; ++e) {
-        const bool ok = kp != nullptr && lane_on;
-        kr[u][e] = ok ? to_float(kp[lane * EPL + e]) : 0.f;
-        vr[u][e] = ok ? to_float(vp[lane * EPL + e]) : 0.f;
+    for (int u = 0; u < U; ++u) {
+      float kf[VEC];
+      widen<T, VEC>(kw[u], kf);
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) x += qr[g][e] * kf[e];
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1)  // the lanes of one row
+          x += __shfl_xor_sync(0xffffffffu, x, off);
+        s[u][g] = x;
       }
     }
 #pragma unroll
-    for (int u = 0; u < kUnroll; ++u) {
-      if (base + u >= n_keys) break;  // uniform across the warp
+    for (int g = 0; g < G; ++g) {
+      float mx = m[g];
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+        if (ok[u]) mx = fmaxf(mx, s[u][g]);
+      const float corr = exp2f(m[g] - mx);
+      m[g] = mx;
+      l[g] *= corr;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      if (!ok[u]) continue;
+      float vf[VEC];
+      widen<T, VEC>(vw[u], vf);
 #pragma unroll
       for (int g = 0; g < G; ++g) {
-        float s = 0.f;
+        const float p = exp2f(s[u][g] - m[g]);
+        l[g] += p;
 #pragma unroll
-        for (int e = 0; e < EPL; ++e) s += qr[g][e] * kr[u][e];
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        s *= scale;
-        const float m_new = fmaxf(m[g], s);
-        const float corr = expf(m[g] - m_new);
-        const float p = expf(s - m_new);
-        l[g] = l[g] * corr + p;
-#pragma unroll
-        for (int e = 0; e < EPL; ++e)
-          acc[g][e] = acc[g][e] * corr + p * vr[u][e];
-        m[g] = m_new;
+        for (int e = 0; e < VEC; ++e) acc[g][e] += p * vf[e];
       }
     }
   }
 
-  // merge the warps' partial softmax states
+  // merge the warp's RPW row groups (lanes LPR apart hold the same columns)
+#pragma unroll
+  for (int off = LPR; off < 32; off <<= 1) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float mo = __shfl_xor_sync(0xffffffffu, m[g], off);
+      const float lo = __shfl_xor_sync(0xffffffffu, l[g], off);
+      const float mx = fmaxf(m[g], mo);
+      const float c_self = exp2f(m[g] - mx), c_other = exp2f(mo - mx);
+      l[g] = l[g] * c_self + lo * c_other;
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) {
+        const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
+        acc[g][e] = acc[g][e] * c_self + ao * c_other;
+      }
+      m[g] = mx;
+    }
+  }
+
+  // merge the warps through shared memory
   __shared__ float sm_m[kWarps][G];
   __shared__ float sm_l[kWarps][G];
   __shared__ float sm_acc[kWarps][G][D];
+  if (sub == 0) {
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+    for (int g = 0; g < G; ++g) {
+      if (lane == 0) {
+        sm_m[warp][g] = m[g];
+        sm_l[warp][g] = l[g];
+      }
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][col + e] = acc[g][e];
     }
-    if (lane_on)
-#pragma unroll
-      for (int e = 0; e < EPL; ++e) sm_acc[warp][g][lane * EPL + e] = acc[g][e];
   }
   __syncthreads();
-  T* ob = out + head * G * D;
   for (int idx = threadIdx.x; idx < G * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
@@ -159,83 +274,143 @@ decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float lt = 0.f, at = 0.f;
 #pragma unroll
     for (int w = 0; w < kWarps; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
+      const float c = exp2f(sm_m[w][g] - mx);
       lt += sm_l[w][g] * c;
       at += sm_acc[w][g][d] * c;
     }
-    ob[g * D + d] = from_float<T>(at / fmaxf(lt, 1e-20f));
+    const long long hq = head * G + g;  // (b, h) in (B, H)
+    if (direct) {
+      out[hq * D + d] = from_float<T>(at / fmaxf(lt, 1e-20f));
+    } else {
+      part_acc[((long long)split * BH + hq) * D + d] = at;
+      if (d == 0) {
+        part_ml[2 * ((long long)split * BH + hq)] = mx;
+        part_ml[2 * ((long long)split * BH + hq) + 1] = lt;
+      }
+    }
   }
+}
+
+// Merge the splits' partial states: one thread per output element. A split
+// with l = 0 (no live key) is skipped, so its acc is never read.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+decode_combine_kernel(const float* __restrict__ part_ml,
+                      const float* __restrict__ part_acc, T* __restrict__ out,
+                      int n_split, long long BH, int D) {
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= BH * D) return;
+  const long long hq = idx / D;
+  const int d = (int)(idx % D);
+  float mx = kNegInf;
+  for (int s = 0; s < n_split; ++s) {
+    const float* ml = part_ml + 2 * (s * BH + hq);
+    if (ml[1] > 0.f) mx = fmaxf(mx, ml[0]);
+  }
+  float lt = 0.f, at = 0.f;
+  for (int s = 0; s < n_split; ++s) {
+    const float* ml = part_ml + 2 * (s * BH + hq);
+    if (ml[1] > 0.f) {
+      const float c = exp2f(ml[0] - mx);
+      lt += ml[1] * c;
+      at += part_acc[(s * BH + hq) * D + d] * c;
+    }
+  }
+  out[idx] = from_float<T>(at / fmaxf(lt, 1e-20f));
 }
 
 template <typename T, int D, int G>
-void launch(const void* q, const void* k, const void* v, const void* k_new,
-            const void* v_new, const int* lengths, void* out, int B, int S,
-            int Hkv, long long kv_stride_b, float scale, cudaStream_t stream) {
-  dim3 grid(Hkv, B);
-  decode_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const void* k_new, const void* v_new, const int* lengths,
+                   void* out, float* scratch, int B, int S, int Hkv,
+                   long long kv_stride_b, int n_split, int split_len,
+                   float scale, cudaStream_t stream) {
+  const long long BH = (long long)B * Hkv * G;
+  float* part_ml = scratch;
+  float* part_acc = scratch == nullptr ? nullptr : scratch + 2 * n_split * BH;
+  dim3 grid(n_split, Hkv, B);
+  decode_split_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(k_new),
-      static_cast<const T*>(v_new), lengths, static_cast<T*>(out), S, Hkv,
-      kv_stride_b, scale);
+      static_cast<const T*>(v_new), lengths, static_cast<T*>(out), part_ml,
+      part_acc, S, Hkv, kv_stride_b, split_len, scale * kLog2e);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || n_split == 1) return err;
+  const long long n_out = BH * D;
+  decode_combine_kernel<T><<<(unsigned)((n_out + kThreads - 1) / kThreads),
+                             kThreads, 0, stream>>>(
+      part_ml, part_acc, static_cast<T*>(out), n_split, BH, D);
+  return cudaGetLastError();
 }
 
 template <typename T, int D>
-bool dispatch_g(int G, const void* q, const void* k, const void* v,
-                const void* k_new, const void* v_new, const int* lengths,
-                void* out, int B, int S, int Hkv, long long kv_stride_b,
-                float scale, cudaStream_t stream) {
+cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
+                       const void* k_new, const void* v_new,
+                       const int* lengths, void* out, float* scratch, int B,
+                       int S, int Hkv, long long kv_stride_b, int n_split,
+                       int split_len, float scale, cudaStream_t stream) {
   switch (G) {
-#define REPRO_G(g)                                                       \
-  case g:                                                                \
-    launch<T, D, g>(q, k, v, k_new, v_new, lengths, out, B, S, Hkv,      \
-                    kv_stride_b, scale, stream);                         \
-    return true;
+#define REPRO_G(g)                                                          \
+  case g:                                                                   \
+    return launch<T, D, g>(q, k, v, k_new, v_new, lengths, out, scratch, B, \
+                           S, Hkv, kv_stride_b, n_split, split_len, scale,  \
+                           stream);
     REPRO_G(1) REPRO_G(2) REPRO_G(4) REPRO_G(8) REPRO_G(16)
 #undef REPRO_G
   }
-  return false;
+  return cudaErrorInvalidValue;
 }
 
 template <typename T>
-bool dispatch_d(int D, int G, const void* q, const void* k, const void* v,
-                const void* k_new, const void* v_new, const int* lengths,
-                void* out, int B, int S, int Hkv, long long kv_stride_b,
-                float scale, cudaStream_t stream) {
+cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
+                       const void* v, const void* k_new, const void* v_new,
+                       const int* lengths, void* out, float* scratch, int B,
+                       int S, int Hkv, long long kv_stride_b, int n_split,
+                       int split_len, float scale, cudaStream_t stream) {
   switch (D) {
-#define REPRO_D(d)                                                          \
-  case d:                                                                   \
-    return dispatch_g<T, d>(G, q, k, v, k_new, v_new, lengths, out, B, S,   \
-                            Hkv, kv_stride_b, scale, stream);
+#define REPRO_D(d)                                                           \
+  case d:                                                                    \
+    return dispatch_g<T, d>(G, q, k, v, k_new, v_new, lengths, out, scratch, \
+                            B, S, Hkv, kv_stride_b, n_split, split_len,      \
+                            scale, stream);
     REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128)
 #undef REPRO_D
   }
-  return false;
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. k_new / v_new may be null. Returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for a shape it does not
-// take).
+// dtype: 0 = float32, 1 = bfloat16. k_new / v_new may be null. The key axis
+// is cut into n_split ranges of split_len keys, which must cover S + 1
+// positions; with n_split > 1, `scratch` holds n_split * B * H * (D + 2)
+// floats (it may be null otherwise). Returns the cudaError_t of the
+// launches (cudaErrorInvalidValue for a shape it does not take).
 extern "C" int repro_decode_attention(const void* q, const void* k,
                                       const void* v, const void* k_new,
                                       const void* v_new, const void* lengths,
-                                      void* out, int B, int S, int H, int Hkv,
-                                      int D, long long kv_stride_b,
-                                      float scale, int dtype, void* stream) {
-  if (B <= 0 || Hkv <= 0 || H % Hkv != 0) return (int)cudaErrorInvalidValue;
+                                      void* out, void* scratch, int B, int S,
+                                      int H, int Hkv, int D,
+                                      long long kv_stride_b, int n_split,
+                                      int split_len, float scale, int dtype,
+                                      void* stream) {
+  if (B <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || n_split < 1 ||
+      split_len < 1 || (long long)n_split * split_len < (long long)S + 1 ||
+      (n_split > 1 && scratch == nullptr))
+    return (int)cudaErrorInvalidValue;
   const int G = H / Hkv;
   const int* lens = static_cast<const int*>(lengths);
+  float* scr = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok;
+  cudaError_t err;
   if (dtype == 0)
-    ok = dispatch_d<float>(D, G, q, k, v, k_new, v_new, lens, out, B, S, Hkv,
-                           kv_stride_b, scale, st);
+    err = dispatch_d<float>(D, G, q, k, v, k_new, v_new, lens, out, scr, B, S,
+                            Hkv, kv_stride_b, n_split, split_len, scale, st);
   else if (dtype == 1)
-    ok = dispatch_d<__nv_bfloat16>(D, G, q, k, v, k_new, v_new, lens, out, B,
-                                   S, Hkv, kv_stride_b, scale, st);
+    err = dispatch_d<__nv_bfloat16>(D, G, q, k, v, k_new, v_new, lens, out,
+                                    scr, B, S, Hkv, kv_stride_b, n_split,
+                                    split_len, scale, st);
   else
-    ok = false;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    err = cudaErrorInvalidValue;
+  return (int)err;
 }

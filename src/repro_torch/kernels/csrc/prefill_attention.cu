@@ -8,55 +8,67 @@
 // contiguous, with H a multiple of Hkv. Query head h reads KV head h / G
 // directly (G = H / Hkv), so the caller never materialises the expanded
 // `_repeat_kv` copy. Row i attends to keys j <= i, and with window > 0 only
-// to keys j > i - window. The softmax is online in fp32 over key tiles and
-// the sum is normalised by max(l, 1e-20), as the Pallas kernel does. S need
-// not be a multiple of any tile: the ragged last query tile and key tile are
-// masked here, so every fresh turn-1 prefill can use the kernel, the exact-
-// length fallback of the replica included.
+// to keys j > i - window. The softmax is online in fp32 over key tiles, with
+// a finite sentinel (-1e30, so a row with no key gives 0, never NaN), and the
+// sum is normalised by max(l, 1e-20), as the Pallas kernel does. S need not
+// be a multiple of any tile: the ragged last query tile and key tile are
+// masked here, so every fresh turn-1 prefill can use the kernel.
 //
-// What bounds it on the H100: operations. A causal prefill does about
-// 2·B·H·S²·D flops for 4·B·S·(H + Hkv)·D·itemsize bytes, well above the
-// card's ~295 flop/byte ridge once S reaches a few hundred.
+// What bounds it on the H100: q, k, v and the output are read or written
+// once (~6 MB at S = 512 with qwen3-0.6b's heads), against ~2·B·H·S²·D
+// causal flops. In bf16 the bytes bound it up to S of ~900 at those heads
+// (3.35 TB/s of HBM), the tensor cores (989 TFLOP/s) beyond; in fp32 the
+// CUDA cores (67 TFLOP/s) bound it from S of ~100. Coming near either needs
+// the tensor cores, tiles big enough to reuse K/V from shared memory, and
+// loads that overlap the arithmetic.
 //
-// What the design does about it, for now: one block per (query tile of 64
-// rows, head, sequence); two threads per query row, each holding half of the
-// row's D elements (interleaved, so the two halves sit in different shared
-// memory banks) and half of its fp32 accumulator in registers. Key and value
-// tiles of 32 rows are staged once in shared memory and read by all 64 rows
-// as broadcasts. Tiles wholly above the diagonal or before the window are
-// never loaded. The products run on the CUDA cores in fp32, not on the
-// tensor cores: this is the simple, correct form. `mma`/`wgmma` tiles, TMA
-// and a deeper pipeline are the work that makes it fast.
+// bf16, the served path — a FlashAttention-2-style kernel on the tensor
+// cores: one block of 4 warps per (64-row query tile, query head, sequence),
+// each warp owning 16 query rows. The Q tile is copied to shared memory once
+// and kept in registers as `mma` A-fragments. 64-key K and V tiles stream
+// through a double buffer in shared memory with `cp.async` (16-byte copies,
+// zero-filled past S), so tile j+1 loads while tile j computes. Q·Kᵀ and P·V
+// are `mma.sync.m16n8k16` bf16 products with fp32 accumulators, fed through
+// `ldmatrix` (V through `ldmatrix.trans`); shared-memory rows are padded by
+// 16 bytes so that `ldmatrix` is free of bank conflicts. The online softmax
+// runs on the accumulator fragments (row max and sum across the quad of
+// lanes that share a row, in base 2). P is rounded to bf16 in registers to
+// become the A-fragments of P·V, as the Pallas kernel rounds it. Only tiles
+// that cross the diagonal, the ragged end or the window start are masked;
+// tiles wholly above the diagonal or before the window are never loaded. The
+// query tiles run in reverse, so the heaviest causal tiles start first. The
+// output tile is staged through shared memory and written with 16-byte
+// stores. Not done yet: `wgmma` on warpgroups and TMA loads with `mbarrier`s
+// (the full tensor-core rate), and a persistent grid.
+//
+// fp32, the parity path: the CUDA-core kernel of the first port, one block
+// per (64-row query tile, head, sequence), two threads per query row, K/V
+// tiles of 32 rows widened in shared memory, products in fp32 (TF32 would
+// miss the fp32 tolerance of 2e-5).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <atomic>
 
 namespace {
 
-constexpr int kBlockQ = 64;   // query rows per block
-constexpr int kBlockK = 32;   // keys per shared-memory tile
-constexpr int kThreads = 2 * kBlockQ;
 constexpr float kNegInf = -1e30f;
 
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
+// --------------------------------------------------------------------------
+// fp32: the CUDA-core kernel
+// --------------------------------------------------------------------------
+constexpr int kF32BlockQ = 64;   // query rows per block
+constexpr int kF32BlockK = 32;   // keys per shared-memory tile
+constexpr int kF32Threads = 2 * kF32BlockQ;
 
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
-               const T* __restrict__ v, T* __restrict__ out, int S, int H,
-               int Hkv, int window, float scale) {
+template <int D>
+__global__ void __launch_bounds__(kF32Threads)
+prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                   const float* __restrict__ v, float* __restrict__ out,
+                   int S, int H, int Hkv, int window, float scale) {
   constexpr int HALF = D / 2;  // elements d = 2 * i + half of this thread
-  const int q_lo = blockIdx.x * kBlockQ;
+  const int q_lo = blockIdx.x * kF32BlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
@@ -65,50 +77,50 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qpos = q_lo + r;
   const bool row_ok = qpos < S;
 
-  __shared__ float ks[kBlockK][D];
-  __shared__ float vs[kBlockK][D];
+  __shared__ float ks[kF32BlockK][D];
+  __shared__ float vs[kF32BlockK][D];
 
   const long long q_row = (long long)H * D;
   const long long kv_row = (long long)Hkv * D;
   float qr[HALF], acc[HALF];
-  const T* qp = q + ((long long)b * S + (row_ok ? qpos : 0)) * q_row +
-                (long long)h * D;
+  const float* qp = q + ((long long)b * S + (row_ok ? qpos : 0)) * q_row +
+                    (long long)h * D;
 #pragma unroll
   for (int i = 0; i < HALF; ++i) {
-    qr[i] = row_ok ? to_float(qp[2 * i + half]) : 0.f;
+    qr[i] = row_ok ? qp[2 * i + half] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
 
   // keys any row of this tile can see: causal end, window start
-  const int q_hi = min(q_lo + kBlockQ, S) - 1;
+  const int q_hi = min(q_lo + kF32BlockQ, S) - 1;
   const int k_end = q_hi + 1;
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_lo - window + 1);
-  k_begin = (k_begin / kBlockK) * kBlockK;
+  k_begin = (k_begin / kF32BlockK) * kF32BlockK;
 
-  const T* kb = k + (long long)b * S * kv_row + (long long)hk * D;
-  const T* vb = v + (long long)b * S * kv_row + (long long)hk * D;
-  for (int k0 = k_begin; k0 < k_end; k0 += kBlockK) {
+  const float* kb = k + (long long)b * S * kv_row + (long long)hk * D;
+  const float* vb = v + (long long)b * S * kv_row + (long long)hk * D;
+  for (int k0 = k_begin; k0 < k_end; k0 += kF32BlockK) {
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
+    for (int idx = threadIdx.x; idx < kF32BlockK * D; idx += kF32Threads) {
       const int j = idx / D;
       const int d = idx % D;
       const int kp = k0 + j;
       float kv_k = 0.f, kv_v = 0.f;
       if (kp < S) {
-        kv_k = to_float(kb[kp * kv_row + d]);
-        kv_v = to_float(vb[kp * kv_row + d]);
+        kv_k = kb[kp * kv_row + d];
+        kv_v = vb[kp * kv_row + d];
       }
       ks[j][d] = kv_k;
       vs[j][d] = kv_v;
     }
     __syncthreads();
 
-    float s[kBlockK];
+    float s[kF32BlockK];
     float tile_max = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < kF32BlockK; ++j) {
       float part = 0.f;
 #pragma unroll
       for (int i = 0; i < HALF; ++i) part += qr[i] * ks[j][2 * i + half];
@@ -124,7 +136,7 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < HALF; ++i) acc[i] *= corr;
 #pragma unroll
-    for (int j = 0; j < kBlockK; ++j) {
+    for (int j = 0; j < kF32BlockK; ++j) {
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
       psum += p;
 #pragma unroll
@@ -135,36 +147,334 @@ prefill_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   if (!row_ok) return;
-  T* op = out + ((long long)b * S + qpos) * q_row + (long long)h * D;
+  float* op = out + ((long long)b * S + qpos) * q_row + (long long)h * D;
   const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) op[2 * i + half] = from_float<T>(acc[i] * inv);
+  for (int i = 0; i < HALF; ++i) op[2 * i + half] = acc[i] * inv;
 }
 
-template <typename T, int D>
-void launch(const void* q, const void* k, const void* v, void* out, int B,
-            int S, int H, int Hkv, int window, float scale,
-            cudaStream_t stream) {
-  dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
-  prefill_kernel<T, D><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), S, H, Hkv, window,
-      scale);
+// --------------------------------------------------------------------------
+// bf16: the tensor-core kernel
+// --------------------------------------------------------------------------
+constexpr int kBlockQ = 64;  // query rows per block, 16 per warp
+constexpr int kBlockK = 64;  // keys per K/V tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kPad = 8;      // bf16 elements of padding per shared row
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-template <typename T>
-bool dispatch_d(int D, const void* q, const void* k, const void* v, void* out,
-                int B, int S, int H, int Hkv, int window, float scale,
-                cudaStream_t stream) {
-  switch (D) {
-#define REPRO_D(d)                                                        \
-  case d:                                                                 \
-    launch<T, d>(q, k, v, out, B, S, H, Hkv, window, scale, stream);      \
-    return true;
-    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128)
-#undef REPRO_D
+// 16 bytes from global to shared, bypassing L1; zero-filled when !ok (the
+// source is then not read, but must still be a valid address)
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_u32(p)));
+}
+
+// c += a · b on one 16x8x16 tile: a row-major (4 regs of bf16 pairs), b
+// column-major (2 regs), c fp32 (4 regs)
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 t = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&t);
+}
+
+template <int D>
+struct MmaShape {
+  static constexpr int LD = D + kPad;         // shared row stride, elements
+  static constexpr int CPR = D / 8;           // 16-byte chunks per row
+  static constexpr int KC = D / 16;           // k-steps of Q·Kᵀ
+  static constexpr int NT = D / 8;            // n-tiles of the output
+  static constexpr int SMEM =                 // Q + 2 x (K, V) tiles
+      (kBlockQ + 4 * kBlockK) * LD * (int)sizeof(__nv_bfloat16);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
+                   const __nv_bfloat16* __restrict__ k,
+                   const __nv_bfloat16* __restrict__ v,
+                   __nv_bfloat16* __restrict__ out, int S, int H, int Hkv,
+                   int window, float scale_log2) {
+  using Sh = MmaShape<D>;
+  constexpr int LD = Sh::LD, CPR = Sh::CPR, KC = Sh::KC, NT = Sh::NT;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
+  __nv_bfloat16* sk = sq + kBlockQ * LD;       // [2][kBlockK][LD]
+  __nv_bfloat16* sv = sk + 2 * kBlockK * LD;   // [2][kBlockK][LD]
+
+  const int q_lo = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heaviest first
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int hk = h / (H / Hkv);
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5;
+  const int lane = tid & 31;
+  const int g = lane >> 2;   // row of the fragment (and row + 8)
+  const int tq = lane & 3;   // column pair of the fragment
+
+  const long long q_row = (long long)H * D;
+  const long long kv_row = (long long)Hkv * D;
+  const __nv_bfloat16* qb = q + (long long)b * S * q_row + (long long)h * D;
+  const __nv_bfloat16* kb = k + (long long)b * S * kv_row + (long long)hk * D;
+  const __nv_bfloat16* vb = v + (long long)b * S * kv_row + (long long)hk * D;
+
+  // keys any row of this tile can see: causal end, window start
+  const int q_hi = min(q_lo + kBlockQ, S) - 1;
+  int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
+  k_begin = (k_begin / kBlockK) * kBlockK;
+  const int n_tiles = (q_hi + 1 - k_begin + kBlockK - 1) / kBlockK;
+
+  for (int c = tid; c < kBlockQ * CPR; c += kThreads) {
+    const int r = c / CPR, cc = c % CPR;
+    const int pos = q_lo + r;
+    cp_async16(sq + r * LD + cc * 8,
+               qb + (long long)(pos < S ? pos : 0) * q_row + cc * 8, pos < S);
   }
-  return false;
+  auto load_kv = [&](int tile, int buf) {
+    const int k0 = k_begin + tile * kBlockK;
+    __nv_bfloat16* dk = sk + buf * kBlockK * LD;
+    __nv_bfloat16* dv = sv + buf * kBlockK * LD;
+    for (int c = tid; c < kBlockK * CPR; c += kThreads) {
+      const int r = c / CPR, cc = c % CPR;
+      const int pos = k0 + r;
+      const long long off = (long long)(pos < S ? pos : 0) * kv_row + cc * 8;
+      cp_async16(dk + r * LD + cc * 8, kb + off, pos < S);
+      cp_async16(dv + r * LD + cc * 8, vb + off, pos < S);
+    }
+  };
+  load_kv(0, 0);
+  cp_async_commit();  // group 0: the Q tile and K/V tile 0
+
+  uint32_t qf[KC][4];
+  float o[NT][4];
+#pragma unroll
+  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m_lo = kNegInf, m_hi = kNegInf;  // rows g and g + 8, base-2 units
+  float l_lo = 0.f, l_hi = 0.f;          // this lane's share of the row sums
+  const int row_lo = q_lo + warp * 16 + g;
+  const int row_hi = row_lo + 8;
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t + 1 < n_tiles) {
+      load_kv(t + 1, (t + 1) & 1);
+      cp_async_commit();
+      cp_async_wait<1>();  // tile t has landed, t + 1 is in flight
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (t == 0) {
+#pragma unroll
+      for (int kc = 0; kc < KC; ++kc)
+        ldmatrix_x4(qf[kc], sq + (warp * 16 + (lane & 7) +
+                                  ((lane >> 3) & 1) * 8) * LD +
+                                kc * 16 + (lane >> 4) * 8);
+    }
+    const __nv_bfloat16* kt = sk + (t & 1) * kBlockK * LD;
+    const __nv_bfloat16* vt = sv + (t & 1) * kBlockK * LD;
+
+    // S = Q·Kᵀ: 8 n-tiles of 8 keys
+    float s[kBlockK / 8][4];
+#pragma unroll
+    for (int n = 0; n < kBlockK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc) {
+#pragma unroll
+      for (int np = 0; np < kBlockK / 16; ++np) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
+                            kc * 16 + ((lane >> 3) & 1) * 8);
+        mma_bf16(s[2 * np], qf[kc], bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], qf[kc], bk[2], bk[3]);
+      }
+    }
+
+    // scale to base-2 units; mask only the tiles that need it
+    const int k0 = k_begin + t * kBlockK;
+    const bool need_mask = k0 + kBlockK - 1 > q_lo || k0 + kBlockK > S ||
+                           (window > 0 && k0 <= q_lo + kBlockQ - 1 - window);
+#pragma unroll
+    for (int n = 0; n < kBlockK / 8; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[n][e] * scale_log2;
+        if (need_mask) {
+          const int j = k0 + n * 8 + 2 * tq + (e & 1);
+          const int i = e < 2 ? row_lo : row_hi;
+          const bool ok = j <= i && j < S && (window == 0 || j > i - window);
+          x = ok ? x : kNegInf;
+        }
+        s[n][e] = x;
+      }
+    }
+
+    // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3)
+    float mx_lo = m_lo, mx_hi = m_hi;
+#pragma unroll
+    for (int n = 0; n < kBlockK / 8; ++n) {
+      mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
+      mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
+    }
+#pragma unroll
+    for (int off = 1; off <= 2; off <<= 1) {  // the quad that shares a row
+      mx_lo = fmaxf(mx_lo, __shfl_xor_sync(0xffffffffu, mx_lo, off));
+      mx_hi = fmaxf(mx_hi, __shfl_xor_sync(0xffffffffu, mx_hi, off));
+    }
+    const float c_lo = exp2f(m_lo - mx_lo);
+    const float c_hi = exp2f(m_hi - mx_hi);
+    m_lo = mx_lo;
+    m_hi = mx_hi;
+    l_lo *= c_lo;
+    l_hi *= c_hi;
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+      o[n][0] *= c_lo;
+      o[n][1] *= c_lo;
+      o[n][2] *= c_hi;
+      o[n][3] *= c_hi;
+    }
+    // P in bf16 as the A-fragments of P·V: k-step kc covers n-tiles 2kc and
+    // 2kc + 1 (the accumulator layout of S is the operand layout of P)
+    uint32_t pa[kBlockK / 16][4];
+#pragma unroll
+    for (int n = 0; n < kBlockK / 8; ++n) {
+      float p[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float mx = e < 2 ? mx_lo : mx_hi;
+        p[e] = s[n][e] > 0.5f * kNegInf ? exp2f(s[n][e] - mx) : 0.f;
+      }
+      l_lo += p[0] + p[1];
+      l_hi += p[2] + p[3];
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+    }
+
+    // O += P·V: V through ldmatrix.trans, 16 output columns per load
+#pragma unroll
+    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+#pragma unroll
+      for (int dp = 0; dp < NT / 2; ++dp) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(bv, vt + (kc * 16 + (lane & 7) +
+                                    ((lane >> 3) & 1) * 8) * LD +
+                                  dp * 16 + (lane >> 4) * 8);
+        mma_bf16(o[2 * dp], pa[kc], bv[0], bv[1]);
+        mma_bf16(o[2 * dp + 1], pa[kc], bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this buffer is refilled by the next iteration
+  }
+
+  // normalise, stage the warp's 16 rows in the (now free) Q tile, and write
+  // them with 16-byte stores
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l_lo += __shfl_xor_sync(0xffffffffu, l_lo, off);
+    l_hi += __shfl_xor_sync(0xffffffffu, l_hi, off);
+  }
+  const float inv_lo = 1.f / fmaxf(l_lo, 1e-20f);
+  const float inv_hi = 1.f / fmaxf(l_hi, 1e-20f);
+  __nv_bfloat16* so = sq + warp * 16 * LD;
+#pragma unroll
+  for (int n = 0; n < NT; ++n) {
+    *reinterpret_cast<uint32_t*>(so + g * LD + n * 8 + 2 * tq) =
+        pack_bf16(o[n][0] * inv_lo, o[n][1] * inv_lo);
+    *reinterpret_cast<uint32_t*>(so + (g + 8) * LD + n * 8 + 2 * tq) =
+        pack_bf16(o[n][2] * inv_hi, o[n][3] * inv_hi);
+  }
+  __syncwarp();
+  __nv_bfloat16* ob = out + (long long)b * S * q_row + (long long)h * D;
+  for (int c = lane; c < 16 * CPR; c += 32) {
+    const int r = c / CPR, cc = c % CPR;
+    const int pos = q_lo + warp * 16 + r;
+    if (pos < S)
+      *reinterpret_cast<uint4*>(ob + (long long)pos * q_row + cc * 8) =
+          *reinterpret_cast<const uint4*>(so + r * LD + cc * 8);
+  }
+}
+
+template <int D>
+cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
+                       int B, int S, int H, int Hkv, int window, float scale,
+                       cudaStream_t stream) {
+  dim3 grid((S + kF32BlockQ - 1) / kF32BlockQ, H, B);
+  prefill_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), S, H, Hkv,
+      window, scale);
+  return cudaGetLastError();
+}
+
+// Lets prefill_mma_kernel<D> take its dynamic shared memory (above the
+// default 48 KB at D = 128): set once per device, since the attribute is
+// held by each device's context, and retried while it fails.
+constexpr int kMaxDevices = 64;
+
+template <int D>
+cudaError_t allow_mma_smem(int smem) {
+  static std::atomic<bool> done[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const bool cached = dev < kMaxDevices;
+  if (cached && done[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+  err = cudaFuncSetAttribute(prefill_mma_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             smem);
+  if (err == cudaSuccess && cached)
+    done[dev].store(true, std::memory_order_relaxed);
+  return err;
+}
+
+template <int D>
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* out,
+                       int B, int S, int H, int Hkv, int window, float scale,
+                       cudaStream_t stream) {
+  constexpr int smem = MmaShape<D>::SMEM;
+  const cudaError_t attr = allow_mma_smem<D>(smem);
+  if (attr != cudaSuccess) return attr;
+  dim3 grid((S + kBlockQ - 1) / kBlockQ, H, B);
+  prefill_mma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(out),
+      S, H, Hkv, window, scale * 1.4426950408889634f);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -175,17 +485,19 @@ extern "C" int repro_prefill_attention(const void* q, const void* k,
                                        const void* v, void* out, int B, int S,
                                        int H, int Hkv, int D, int window,
                                        float scale, int dtype, void* stream) {
-  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
+  if (B <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0 || window < 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  bool ok;
-  if (dtype == 0)
-    ok = dispatch_d<float>(D, q, k, v, out, B, S, H, Hkv, window, scale, st);
-  else if (dtype == 1)
-    ok = dispatch_d<__nv_bfloat16>(D, q, k, v, out, B, S, H, Hkv, window,
-                                   scale, st);
-  else
-    ok = false;
-  if (!ok) return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+  switch (dtype * 1000 + D) {
+#define REPRO_D(d)                                                          \
+  case d:                                                                   \
+    return (int)launch_f32<d>(q, k, v, out, B, S, H, Hkv, window, scale,   \
+                              st);                                          \
+  case 1000 + d:                                                            \
+    return (int)launch_mma<d>(q, k, v, out, B, S, H, Hkv, window, scale,   \
+                              st);
+    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128)
+#undef REPRO_D
+  }
+  return (int)cudaErrorInvalidValue;
 }

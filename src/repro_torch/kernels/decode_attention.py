@@ -11,14 +11,21 @@ after the live cache (the two-branch form of the model's decode attention),
 so the caller never has to scatter it into the cache first: no write can
 land past a buffer whatever a slot's length is.
 
+The kernel cuts each (sequence, KV head)'s key axis into splits, one block
+each, and merges them in a second pass from the same C entry point. The
+split is planned by `plan_decode_splits` from the shapes alone: the wrapper
+never reads `lengths` on the host, so a launch needs no sync and can be
+captured in a CUDA graph.
+
 The wrapper launches on `torch.cuda.current_stream()` and adds one to
-`flash_decode_attention.launches` per launch; nothing else touches that
-count. It takes CUDA tensors only: `ops.decode_attention` sends CPU tensors
-to `decode_attention_plain`.
+`flash_decode_attention.launches` per call (the split kernel and its
+combine count as one launch of K1); nothing else touches that count. It takes CUDA tensors only:
+`ops.decode_attention` sends CPU tensors to `decode_attention_plain`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -30,6 +37,34 @@ HEAD_DIMS = (16, 32, 64, 128)
 GROUPS = (1, 2, 4, 8, 16)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
+# about four blocks of K1 per SM of the H100 (132 SMs): the split kernel's
+# 128-register threads leave room for four resident blocks on each
+TARGET_BLOCKS = 4 * 132
+
+
+def key_chunk(D: int) -> int:
+    """The shortest split of K1, in keys: the rows one block loads per
+    round of its loop with 16-byte loads (4 warps x 8 loads x 32 / (D / 8)
+    rows), 64 at D = 128. A shorter split costs a combine and saves no
+    round."""
+    return 8192 // D
+
+
+@functools.lru_cache(maxsize=None)
+def plan_decode_splits(B: int, Hkv: int, S: int, D: int):
+    """(n_split, split_len) of K1's key axis: S + 1 positions (the cache,
+    then the new token) cut into n_split ranges of split_len keys, one
+    block per (split, KV head, sequence). A function of the shapes only —
+    never of the live lengths — so the launch needs nothing from the
+    device. Enough splits for ~TARGET_BLOCKS blocks, but no more than the
+    whole chunks of `key_chunk(D)` keys in S + 1, and none empty at the
+    full length. Cached: a served model asks for a handful of shapes, once
+    per layer and step."""
+    n_keys = S + 1
+    want = -(-TARGET_BLOCKS // max(1, B * Hkv))
+    n = max(1, min(want, n_keys // key_chunk(D)))
+    split_len = -(-n_keys // n)
+    return -(-n_keys // split_len), split_len
 
 
 def decode_attention_plain(q, k, v, lengths, k_new=None, v_new=None):
@@ -64,9 +99,9 @@ def _fn():
     if _FN is None:
         f = _build.load("decode_attention").repro_decode_attention
         f.restype = ctypes.c_int
-        f.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 5
-                      + [ctypes.c_int64, ctypes.c_float, ctypes.c_int,
-                         ctypes.c_void_p])
+        f.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 5
+                      + [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         _FN = f
     return _FN
 
@@ -85,7 +120,8 @@ def flash_decode_attention(q, k, v, lengths, k_new: Optional[torch.Tensor]
     """Launch K1 on CUDA tensors. q (B, H, D) contiguous; k, v (B, S, Hkv, D)
     with contiguous inner dims and equal strides; lengths (B,) int32;
     k_new, v_new (B, Hkv, D) contiguous or both None. float32 or bfloat16,
-    head_dim in HEAD_DIMS, H / Hkv in GROUPS. Returns (B, H, D)."""
+    head_dim in HEAD_DIMS, H / Hkv in GROUPS, every tensor 16-byte aligned
+    (the kernel loads 16 bytes at a time). Returns (B, H, D)."""
     tensors = [q, k, v] + ([k_new, v_new] if k_new is not None else [])
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("flash_decode_attention takes CUDA tensors on one "
@@ -115,18 +151,27 @@ def flash_decode_attention(q, k, v, lengths, k_new: Optional[torch.Tensor]
             if tuple(t.shape) != (B, Hkv, D) or not t.is_contiguous():
                 raise ValueError(f"{name} must be a contiguous {(B, Hkv, D)}"
                                  f", got {tuple(t.shape)}")
+    if any(t.data_ptr() % 16 for t in tensors) or (
+            k.stride(0) * k.element_size()) % 16:
+        raise ValueError("q, k, v, k_new, v_new and k's batch stride must "
+                         "be 16-byte aligned")
     lengths = lengths.to(device=q.device, dtype=torch.int32).contiguous()
     if tuple(lengths.shape) != (B,):
         raise ValueError(f"lengths shape {tuple(lengths.shape)} != {(B,)}")
     out = torch.empty_like(q)
+    n_split, split_len = plan_decode_splits(B, Hkv, S, D)
+    scratch = (torch.empty(n_split * B * H * (D + 2), dtype=torch.float32,
+                           device=q.device) if n_split > 1 else None)
     fn = _fn()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 k_new.data_ptr() if k_new is not None else None,
                 v_new.data_ptr() if v_new is not None else None,
-                lengths.data_ptr(), out.data_ptr(), B, S, H, Hkv, D,
-                k.stride(0), 1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
+                lengths.data_ptr(), out.data_ptr(),
+                scratch.data_ptr() if scratch is not None else None,
+                B, S, H, Hkv, D, k.stride(0), n_split, split_len,
+                1.0 / math.sqrt(D), _DTYPES[q.dtype], stream)
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {rc}")

@@ -6,7 +6,9 @@ Replaces the JAX package's Pallas kernel `flash_prefill_attention`
 (src/repro/kernels/prefill_attention.py). Layouts are the model's: q
 (B, S, H, D), k, v (B, S, Hkv, D) with H a multiple of Hkv — the kernel reads
 KV head h // G itself, so GQA needs no expanded copy. Any S works: the
-ragged last tile is masked in the kernel.
+ragged last tile is masked in the kernel. bf16 runs on the tensor cores
+(`mma.sync`, P rounded to bf16 before P·V as in the Pallas kernel); fp32
+runs on the CUDA cores in full fp32.
 
 The wrapper launches on `torch.cuda.current_stream()` and adds one to
 `flash_prefill_attention.launches` per launch; nothing else touches that
@@ -51,8 +53,8 @@ def _fn():
 
 def flash_prefill_attention(q, k, v, *, window: int = 0):
     """Launch K2 on CUDA tensors. q (B, S, H, D), k, v (B, S, Hkv, D), all
-    contiguous, float32 or bfloat16, head_dim in HEAD_DIMS. Returns
-    (B, S, H, D)."""
+    contiguous and 16-byte aligned, float32 or bfloat16 (bf16 runs on the
+    tensor cores), head_dim in HEAD_DIMS. Returns (B, S, H, D)."""
     if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v)):
         raise ValueError("flash_prefill_attention takes CUDA tensors on one "
                          "device; CPU tensors go to prefill_attention_plain")
@@ -73,6 +75,8 @@ def flash_prefill_attention(q, k, v, *, window: int = 0):
         raise ValueError(f"H={H} is not a multiple of Hkv={Hkv}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k, v must be contiguous")
+    if any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("q, k, v must be 16-byte aligned")
     if window < 0:
         raise ValueError(f"window {window} < 0")
     out = torch.empty_like(q)

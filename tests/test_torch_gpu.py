@@ -6,13 +6,27 @@ marked `gpu` and skips on a machine without one; on a card run
 (`--noconftest`: the repository's conftest imports JAX, which a card-only
 machine need not have; nothing here imports JAX or the JAX package). The
 attention kernels are held against their plain versions (float32 with TF32
-off: 2e-5; bfloat16: 2e-2), K3 against the step recurrence within 5e-5 of
-the result's magnitude (both widen bf16 inputs exactly and accumulate in
-fp32; only the order of the sums differs, and a long prefill whose decay is
-near 1 grows the state), K4 against the step recurrence within 1e-5 (fp32)
-and 1e-5 of the result's magnitude (bf16 inputs, widened exactly), each
-launch is counted, and the reduced models served through the kernels give
-the same greedy tokens as the torch paths."""
+off: 2e-5; bfloat16: 2e-2). K1 (`csrc/decode_attention.cu`, replacing the
+Pallas `flash_decode_attention`) is bound by the bytes of the cache it
+reads; it splits each (sequence, KV head)'s keys across blocks, planned
+from the shapes alone, and merges the splits in a second pass — so its
+cases cover rows with no key, len == S, idle slots longer than the trimmed
+read, B = 1 at S = 1024 (many splits), B = 16 at S = 64 (one split, no
+combine), every group size at D = 128 and 16, and a CUDA-graph replay
+against the eager call (not done yet: a persistent grid). K2
+(`csrc/prefill_attention.cu`, replacing the Pallas
+`flash_prefill_attention`) is bound by bytes up to S of ~900 at
+qwen3-0.6b's heads; in bf16 it runs on the tensor cores (`mma.sync` fed by
+`ldmatrix`, K/V tiles streamed by `cp.async`), so its cases cover ragged S
+around the 64-row tiles, window 96, G in {1, 2, 8} and D in {16, 64, 128}
+(not done yet: `wgmma` and TMA); fp32 keeps the CUDA-core kernel. K3 is
+held against the step recurrence within 5e-5 of the result's magnitude
+(both widen bf16 inputs exactly and accumulate in fp32; only the order of
+the sums differs, and a long prefill whose decay is near 1 grows the
+state), K4 against the step recurrence within 1e-5 (fp32) and 1e-5 of the
+result's magnitude (bf16 inputs, widened exactly), each launch is
+counted, and the reduced models served through the kernels give the same
+greedy tokens as the torch paths."""
 import numpy as np
 import pytest
 
@@ -22,7 +36,7 @@ from repro_torch.configs import get_reduced  # noqa: E402
 from repro_torch.engine import ReplicaEngine  # noqa: E402
 from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_plain, flash_decode_attention)
+    decode_attention_plain, flash_decode_attention, plan_decode_splits)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     flash_prefill_attention, prefill_attention_plain)
 from repro_torch.kernels.rglru import rglru_cuda, rglru_plain  # noqa: E402
@@ -52,7 +66,11 @@ def _rand(dev, dtype, seed, shape):
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("H,Hkv,D", [(4, 4, 16), (16, 8, 128), (8, 1, 64),
-                                     (16, 1, 32)])
+                                     (16, 1, 32),
+                                     # G = 1, 2, 4, 8, 16 at D = 128 and 16
+                                     (8, 8, 128), (8, 2, 128), (16, 2, 128),
+                                     (16, 1, 128), (4, 2, 16), (8, 2, 16),
+                                     (8, 1, 16), (16, 1, 16)])
 def test_cuda_decode_kernel_matches_plain(cuda, dtype, H, Hkv, D):
     """Ragged lengths 1, S, and longer than the trimmed read; the cache is a
     strided view of a longer buffer; the new token rides as a second
@@ -77,10 +95,81 @@ def test_cuda_decode_kernel_matches_plain(cuda, dtype, H, Hkv, D):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S,H,Hkv,D,window", [(64, 4, 4, 16, 0),
-                                              (200, 16, 8, 128, 0),
-                                              (256, 4, 2, 64, 96),
-                                              (33, 2, 1, 32, 0)])
+@pytest.mark.parametrize("B,L,S,lens", [
+    (1, 1024, 1024, [1024]),          # one sequence: many splits, len == S
+    (1, 1024, 1024, [517]),
+    (16, 128, 64, [0, 64, 1, 63, 100, 33, 2, 64, 17, 0, 5, 40, 128, 9, 31,
+                   32]),              # 16 slots at the 64 bucket: one split
+    (3, 512, 256, [0, 256, 400])])    # an empty row, len == S, an idle slot
+def test_cuda_decode_kernel_split_shapes(cuda, dtype, B, L, S, lens):
+    """qwen3-0.6b's heads (16 over 8, D = 128) at the split planner's edge
+    cases, with and without the new token. A row with len == 0 and no new
+    token is exactly 0; with the new token it is that token's v."""
+    H, Hkv, D = 16, 8, 128
+    q = _rand(cuda, dtype, 0, (B, H, D))
+    kb, vb = (_rand(cuda, dtype, i, (B, L, Hkv, D)) for i in (1, 2))
+    kn, vn = (_rand(cuda, dtype, i, (B, Hkv, D)) for i in (3, 4))
+    k, v = kb[:, :S], vb[:, :S]
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    if B == 1:
+        assert plan_decode_splits(B, Hkv, S, D)[0] > 1
+    got = flash_decode_attention(q, k, v, lens, kn, vn)
+    no_new = flash_decode_attention(q, k, v, lens)
+    want = decode_attention_plain(q, k, v, lens, kn, vn)
+    want_nn = decode_attention_plain(q, k, v, lens)
+    torch.cuda.synchronize()
+    assert float((got.float() - want.float()).abs().max()) < TOLS[dtype]
+    assert float((no_new.float() - want_nn.float()).abs().max()) \
+        < TOLS[dtype]
+    empty = lens == 0
+    assert torch.equal(no_new[empty], torch.zeros_like(no_new[empty]))
+    assert not torch.isnan(no_new).any() and not torch.isnan(got).any()
+    new_only = vn.repeat_interleave(H // Hkv, dim=1)[empty]
+    assert float((got[empty].float() - new_only.float()).abs().max()
+                 if empty.any() else 0.0) < TOLS[dtype]
+
+
+@pytest.mark.gpu
+def test_cuda_decode_kernel_graph_replay_equals_eager(cuda):
+    """A K1 call captured in a CUDA graph and replayed gives the eager
+    call's bits, and reads the lengths at replay time: nothing about them
+    was fixed on the host when the launch was captured."""
+    B, L, S, H, Hkv, D = 16, 1024, 256, 16, 8, 128
+    q = _rand(cuda, "bfloat16", 0, (B, H, D))
+    kb, vb = (_rand(cuda, "bfloat16", i, (B, L, Hkv, D)) for i in (1, 2))
+    kn, vn = (_rand(cuda, "bfloat16", i, (B, Hkv, D)) for i in (3, 4))
+    lens = torch.arange(B, dtype=torch.int32, device=cuda) * 17 % (S + 40)
+    call = lambda: flash_decode_attention(  # noqa: E731
+        q, kb[:, :S], vb[:, :S], lens, kn, vn)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for new_lens in (lens.clone(), (S - lens).clamp(min=0)):
+        lens.copy_(new_lens)
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S,H,Hkv,D,window", [
+    (64, 4, 4, 16, 0), (200, 16, 8, 128, 0), (256, 4, 2, 64, 96),
+    (33, 2, 1, 32, 0),
+    # ragged S around the 64-row tiles at qwen3-0.6b's heads
+    (1, 16, 8, 128, 0), (15, 16, 8, 128, 0), (16, 16, 8, 128, 0),
+    (17, 16, 8, 128, 0), (63, 16, 8, 128, 0), (64, 16, 8, 128, 0),
+    (65, 16, 8, 128, 0), (256, 16, 8, 128, 0), (512, 16, 8, 128, 0),
+    (1024, 16, 8, 128, 0),
+    # window 96, G = 1 / 2 / 8, D = 16 / 64 / 128
+    (512, 16, 8, 128, 96), (200, 8, 8, 16, 96), (300, 8, 8, 64, 0),
+    (256, 16, 2, 64, 0), (130, 8, 1, 16, 0), (65, 16, 2, 128, 96)])
 def test_cuda_prefill_kernel_matches_plain(cuda, dtype, S, H, Hkv, D, window):
     q = _rand(cuda, dtype, 0, (2, S, H, D))
     k, v = (_rand(cuda, dtype, i, (2, S, Hkv, D)) for i in (1, 2))

@@ -22,8 +22,9 @@ from repro.kernels.decode_attention import flash_decode_attention as pallas_deco
 from repro.kernels.prefill_attention import flash_prefill_attention as pallas_prefill  # noqa: E402
 from repro.models.attention import decode_attention as j_two_branch  # noqa: E402
 from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as k1_module  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
-    decode_attention_plain, flash_decode_attention)
+    decode_attention_plain, flash_decode_attention, plan_decode_splits)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     flash_prefill_attention, prefill_attention_plain)
 
@@ -161,6 +162,44 @@ def test_empty_rows_normalise_to_zero_not_nan():
     k = v = torch.ones(1, 8, 2, 16)
     out = decode_attention_plain(q, k, v, torch.zeros(1, dtype=torch.int32))
     assert torch.equal(out, torch.zeros_like(out))
+
+
+# --------------------------------------------------------------------------- #
+# K1's split planner (pure Python: the wrapper launches what it plans)
+# --------------------------------------------------------------------------- #
+@pytest.mark.parametrize("B,Hkv,S,D", [(16, 8, 64, 128), (16, 8, 256, 128),
+                                       (16, 8, 1024, 128), (1, 8, 1024, 128),
+                                       (1, 8, 0, 128), (1, 1, 1, 16),
+                                       (64, 8, 1024, 128), (3, 2, 517, 64),
+                                       (2, 1, 300, 32), (16, 1, 64, 16)])
+def test_decode_split_plan_covers_the_keys(B, Hkv, S, D):
+    """At least one split; the splits cover the S + 1 key positions (the
+    cache, then the new token) with none empty at the full length; never
+    more splits than key chunks, so no split is shorter than one."""
+    n, length = plan_decode_splits(B, Hkv, S, D)
+    assert n >= 1 and length >= 1
+    assert n * length >= S + 1
+    assert (n - 1) * length < S + 1
+    assert n <= max(1, -(-(S + 1) // k1_module.key_chunk(D)))
+    assert n == 1 or length >= k1_module.key_chunk(D)
+
+
+def test_decode_split_plan_depends_on_shapes_only():
+    """The planner takes the shapes and nothing else, gives the same plan
+    for the same shapes, and splits the served shape (16 slots x 8 KV heads
+    at a 256 ctx bucket) into more than B * Hkv blocks; the wrapper never
+    reads the lengths back on the host."""
+    import inspect
+    assert list(inspect.signature(plan_decode_splits).parameters) == [
+        "B", "Hkv", "S", "D"]
+    plans = {plan_decode_splits(16, 8, 256, 128) for _ in range(3)}
+    assert len(plans) == 1
+    n, _ = plans.pop()
+    assert n > 1
+    assert plan_decode_splits(1, 8, 1024, 128)[0] > n
+    src = inspect.getsource(flash_decode_attention)
+    for host_read in (".item(", ".cpu(", ".tolist(", ".numpy("):
+        assert host_read not in src
 
 
 # --------------------------------------------------------------------------- #
