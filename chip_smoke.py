@@ -24,6 +24,10 @@ Phases, each raising on failure:
      CUDA graph and replayed between events, the median of five replays,
      the calls cycling over enough copies of the inputs that each reads
      them from HBM, not from L2), and each kernel's bound from its shapes;
+     then, checked but not timed, K3 under strong decay (the full-width
+     init's |cum logw|) at its chunk and pass edges for each head size and
+     on a strided view, and K4 at its segment and tile edges, at W = 2560
+     and 4095, with every mix of input dtypes — each call one launch;
   4. full-width qwen3-0.6b in fp32 from a seeded torch init: prefill and a
      short decode rollout with attention_impl "cuda" and "torch" — logits
      within tolerance, greedy tokens equal, K1 and K2 each launched once
@@ -36,18 +40,21 @@ Phases, each raising on failure:
      launch counters > 0 (counted from 0 over this run alone);
   6. full-width rwkv6-3b in fp32: prefill (WKV in K3 vs `wkv6_chunked`) and
      an 8-step decode under "cuda" and "torch" — logits within tolerance,
-     greedy tokens equal;
+     greedy tokens equal, K3 launched once per layer (32) by the prefill,
+     and K3 held against the step recurrence on the first layer's own WKV
+     inputs (the chunked form's error printed beside it);
   7. full-width rwkv6-3b in bf16: the rwkv6 path, served as in 5b — all
-     complete, one state transfer per conversation, K3's counter > 0
-     (counted from 0 over this run alone);
+     complete, one state transfer per conversation, K3's counter > 0 and a
+     multiple of 32 (counted from 0 over this run alone);
   8. full-width recurrentgemma-9b in fp32: prefill of 300 tokens (the RG-LRU
      recurrence in K4 under "cuda", in the log-depth scan under "torch") and
      decode steps — logits within tolerance, greedy tokens of a
      ReplicaEngine pair equal;
   9. full-width recurrentgemma-9b in bf16: the recurrentgemma path, served
      as in 5b — all complete, one transfer per conversation, K4's counter
-     > 0 and K1's and K2's at 0 (its attention layers are all local, which
-     the reference, too, runs outside its attention kernels).
+     > 0 and a multiple of 26, and K1's and K2's at 0 (its attention layers
+     are all local, which the reference, too, runs outside its attention
+     kernels).
 
 Each model is freed before the next is loaded. The last four lines of
 standard output are the script's wall time, the card's name and power
@@ -364,12 +371,25 @@ def phase_kernels(torch, cfg):
     return recs
 
 
-def check_wkv6(torch, dtype, B, S, H, hs, n_live=None, seed=0):
+def wkv6_errors(got, want):
+    """(max|err|, the same relative to max(1, max|plain|)) over K3's two
+    outputs."""
+    err = max(max_err(a, b) for a, b in zip(got, want))
+    rel = max(max_err(a, b) / max(1.0, float(b.abs().max()))
+              for a, b in zip(got, want))
+    return err, rel
+
+
+def check_wkv6(torch, dtype, B, S, H, hs, n_live=None, seed=0,
+               decay_shift=0.0, strided=False, timed=True):
     """K3 at one prefill shape, r, k, v in `dtype`, the rest fp32, with the
-    model's distributions (logw = -exp(x), decay in (0, 1)). Heads from
-    n_live on are dead pad heads (r zeroed, as the model does). Returns
-    (max|err|, the same relative to max(1, max|plain|), kernel_ms,
-    kernel device_ms, plain_ms, bound)."""
+    model's distributions (logw = -exp(x + decay_shift), decay in (0, 1);
+    a shift of 1.5 gives |cum logw| of ~330 per 64 tokens, as the
+    full-width init does). Heads from n_live on are dead pad heads (r
+    zeroed, as the model does); `strided` reads r, k, v, logw as head
+    slices of wider tensors. One launch a call. Returns (max|err|, the same
+    relative to max(1, max|plain|), kernel_ms, kernel device_ms, plain_ms,
+    bound), the times None unless `timed`."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -379,19 +399,26 @@ def check_wkv6(torch, dtype, B, S, H, hs, n_live=None, seed=0):
     r, k, v = (rnd(B, S, H, hs).to(dt) for _ in range(3))
     if n_live is not None:
         r[:, :, n_live:] = 0
-    logw = -torch.exp(rnd(B, S, H, hs))
+    logw = -torch.exp(rnd(B, S, H, hs) + decay_shift)
+    if strided:
+        r, k, v, logw = (torch.cat([x, x], dim=2)[:, :, 1:H + 1]
+                         for x in (r, k, v, logw))
     u, s0 = rnd(H, hs, sc=0.3), rnd(B, H, hs, hs, sc=0.2)
     args = (r, k, v, logw, u, s0)
+    before = wkv6_cuda.launches
     got = wkv6_cuda(*args)
+    if wkv6_cuda.launches != before + 1:
+        raise AssertionError("K3 did not count one launch for one call")
     want = wkv6_plain(*args)
     torch.cuda.synchronize()
-    err = max(max_err(a, b) for a, b in zip(got, want))
-    rel = max(max_err(a, b) / max(1.0, float(b.abs().max()))
-              for a, b in zip(got, want))
+    err, rel = wkv6_errors(got, want)
     if not rel < WKV_RTOL:
-        raise AssertionError(f"K3 {dtype} B={B} S={S} H={H}: relative "
+        raise AssertionError(f"K3 {dtype} B={B} S={S} H={H} hs={hs} shift="
+                             f"{decay_shift} strided={strided}: relative "
                              f"max|err| {rel} >= {WKV_RTOL}")
     assert ops.wkv6(*args)[0].shape == (B, S, H, hs)
+    if not timed:
+        return err, rel, None, None, None, None
     isz = torch.finfo(dt).bits // 8
     n = B * S * H * hs
     nbytes = 3 * n * isz + 2 * 4 * n + 4 * H * hs + 2 * 4 * B * H * hs * hs
@@ -425,33 +452,58 @@ def phase_wkv6(torch, cfg):
                 rec = dict(max_abs_err=err, ms=k_ms, device_ms=k_dev,
                            plain_ms=p_ms, library_ms=None,
                            library_device_ms=None, bound_ms=bms, bound_by=by)
+    # strong decay (the full-width init's |cum logw|) at the chunk edges (8
+    # tokens) and one past a pass (4 or 5 chunks at hs = 64, 7 or 10 at
+    # hs = 32, 12 at hs = 16), each head size, and a strided view: checked,
+    # not timed
+    worst = 0.0
+    for dtype in ("float32", "bfloat16"):
+        for S, hs_ in ((1, hs), (7, hs), (9, hs), (33, hs), (41, hs),
+                       (512, hs), (9, 16), (97, 16), (7, 32), (57, 32),
+                       (81, 32), (512, 32)):
+            worst = max(worst, check_wkv6(torch, dtype, 2, S, 5, hs_,
+                                          decay_shift=1.5, timed=False)[1])
+        worst = max(worst, check_wkv6(torch, dtype, 1, 300, H, hs,
+                                      decay_shift=1.5, strided=True,
+                                      timed=False)[1])
+    log(f"  K3 strong decay, S in (1, 7, 9, 33, 41, 57, 81, 97, 512), "
+        f"hs 16/32/64, fp32/bf16, a strided view: worst relative max|err| "
+        f"{worst:.3e}")
     return {"wkv6": rec}
 
 
-def check_rglru(torch, dtype, B, S, W, seed=0):
-    """K4 at one prefill shape, log_a and b in `dtype`, h0 fp32, with the
-    reference test's distributions (log_a = -exp(0.3 N): decays in (0, 1)).
-    Returns (max|err|, kernel_ms, kernel device_ms, plain_ms, bound)."""
+def check_rglru(torch, dtype, B, S, W, seed=0, b_dtype=None, timed=True):
+    """K4 at one prefill shape, log_a in `dtype` and b in `b_dtype` (by
+    default the same), h0 fp32, with the reference test's distributions
+    (log_a = -exp(0.3 N): decays in (0, 1)). One launch a call. Returns
+    (max|err|, kernel_ms, kernel device_ms, plain_ms, bound), the times None
+    unless `timed`."""
     from repro_torch.kernels import ops
     from repro_torch.kernels.rglru import rglru_cuda, rglru_plain
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
+    bdt = getattr(torch, b_dtype or dtype)
     rnd = lambda *s_, sc=0.5: torch.randn(*s_, generator=g,  # noqa: E731
                                           device="cuda") * sc
     la = (-torch.exp(rnd(B, S, W, sc=0.3))).to(dt)
-    b = rnd(B, S, W).to(dt)
+    b = rnd(B, S, W).to(bdt)
     h0 = rnd(B, W, sc=0.2)
     args = (la, b, h0)
+    before = rglru_cuda.launches
     got = rglru_cuda(*args)
+    if rglru_cuda.launches != before + 1:
+        raise AssertionError("K4 did not count one launch for one call")
     want = rglru_plain(*args)
     torch.cuda.synchronize()
     err = max(max_err(a, w) for a, w in zip(got, want))
-    scale = 1.0 if dtype == "float32" else max(
+    scale = 1.0 if dt == bdt == torch.float32 else max(
         1.0, max(float(w.abs().max()) for w in want))
     if not err < RGLRU_TOL * scale:
-        raise AssertionError(f"K4 {dtype} B={B} S={S} W={W}: max|err| {err}"
-                             f" >= {RGLRU_TOL * scale}")
+        raise AssertionError(f"K4 {dtype}/{b_dtype or dtype} B={B} S={S} "
+                             f"W={W}: max|err| {err} >= {RGLRU_TOL * scale}")
     assert ops.rglru_scan(*args)[0].shape == (B, S, W)
+    if not timed:
+        return err, None, None, None, None
     isz = torch.finfo(dt).bits // 8
     n = B * S * W
     nbytes = 2 * n * isz + 4 * n + 2 * 4 * B * W
@@ -484,6 +536,18 @@ def phase_rglru(torch, cfg):
                 rec = dict(max_abs_err=err, ms=k_ms, device_ms=k_dev,
                            plain_ms=p_ms, library_ms=None,
                            library_device_ms=None, bound_ms=bms, bound_by=by)
+    # segment and tile edges (segments of up to 16 steps, tiles of 16), W not
+    # a power of two and not a multiple of 32, every mix of input dtypes:
+    # checked, not timed
+    worst = 0.0
+    for a_dt, b_dt in (("float32", "float32"), ("bfloat16", "bfloat16"),
+                       ("float32", "bfloat16"), ("bfloat16", "float32")):
+        for S in (1, 15, 257, 512):
+            for Wk in (2560, 4095):
+                worst = max(worst, check_rglru(torch, a_dt, 1, S, Wk,
+                                               b_dtype=b_dt, timed=False)[0])
+    log(f"  K4 S in (1, 15, 257, 512), W 2560/4095, log_a/b dtypes mixed: "
+        f"worst max|err| {worst:.3e}")
     return {"rglru": rec}
 
 
@@ -690,7 +754,10 @@ def phase_rwkv_fp32_parity(torch, cfg, device, n_decode=8):
     `wkv6_chunked` ("torch"), then decode steps from each one's state."""
     import numpy as np
     from repro_torch.engine import ReplicaEngine
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain
     from repro_torch.models import build_model
+    from repro_torch.models.recurrent import wkv6_chunked
     cfg = cfg.scaled(dtype="float32")
     log(f"phase 6: {cfg.name} full width fp32 ({cfg.n_layers} layers), "
         f"WKV in K3 (cuda) vs wkv6_chunked (torch)")
@@ -699,10 +766,43 @@ def phase_rwkv_fp32_parity(torch, cfg, device, n_decode=8):
     prompt = np.random.RandomState(1).randint(0, cfg.vocab_size, 300)
     toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
     logits, caches = {}, {}
-    for impl in ("cuda", "torch"):
-        logits[impl], caches[impl] = model.prefill(params, toks,
-                                                   attention_impl=impl)
+    # the first RWKV6 layer's WKV inputs, as the cuda prefill hands them on
+    first_call = []
+    wkv6 = ops.wkv6
+
+    def spy(*a, **kw):
+        if not first_call:
+            first_call.append(tuple(t.clone() for t in a))
+        return wkv6(*a, **kw)
+
+    ops.reset_launch_counts()
+    ops.wkv6 = spy
+    try:
+        logits["cuda"], caches["cuda"] = model.prefill(params, toks,
+                                                       attention_impl="cuda")
+    finally:
+        ops.wkv6 = wkv6
+    k3 = ops.launch_counts()["wkv6"]
+    if k3 != cfg.n_layers:
+        raise AssertionError(f"K3 launched {k3} times in one prefill, not "
+                             f"{cfg.n_layers}")
+    logits["torch"], caches["torch"] = model.prefill(params, toks,
+                                                     attention_impl="torch")
     err_p = max_err(logits["cuda"], logits["torch"])
+    # K3 on the model's own inputs (S = 300): against the step recurrence,
+    # and the chunked form's error beside it
+    args = first_call[0]
+    want = wkv6_plain(*args)
+    _, rel_k3 = wkv6_errors(wkv6_cuda(*args), want)
+    _, rel_ch = wkv6_errors(wkv6_chunked(*args), want)
+    cum = args[3][:, :64].sum(1).abs().max()
+    log(f"  layer 0's WKV inputs (S = 300, max|cum logw| over 64 tokens "
+        f"{float(cum):.1f}): relative max|err| vs the step recurrence, K3 "
+        f"{rel_k3:.3e} (tol {WKV_RTOL}), wkv6_chunked {rel_ch:.3e}; K3 "
+        f"launched {k3} times by the cuda prefill")
+    if not rel_k3 < WKV_RTOL:
+        raise AssertionError(f"K3 on layer 0's inputs: relative max|err| "
+                             f"{rel_k3} >= {WKV_RTOL}")
     s_c, s_t = (caches[i]["groups"]["p0"]["s"] for i in ("cuda", "torch"))
     err_s = max_err(s_c, s_t) / max(1.0, float(s_t.abs().max()))
     pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
@@ -743,6 +843,9 @@ def phase_rwkv_serve(torch, cfg, device, card):
         f"ConServe, strict accounting")
     params = build_model(cfg).init(0, device)
     launches = serve_and_count(torch, cfg, params, card, ("wkv6",), "")
+    if launches["wkv6"] % cfg.n_layers:
+        raise AssertionError(f"{launches['wkv6']} K3 launches are not "
+                             f"{cfg.n_layers} per prefill")
     del params
     torch.cuda.empty_cache()
     return launches
@@ -828,6 +931,9 @@ def phase_rg_serve(torch, cfg, device, card):
     launches = serve_and_count(torch, cfg, params, card, ("rglru",), "",
                                absent=("decode_attention",
                                        "prefill_attention", "wkv6"))
+    if launches["rglru"] % 26:
+        raise AssertionError(f"{launches['rglru']} K4 launches are not 26 "
+                             "per prefill")
     del params
     torch.cuda.empty_cache()
     return launches

@@ -6,7 +6,8 @@ Replaces the JAX package's Pallas kernel `rglru_pallas`
 (src/repro/kernels/rglru_kernel.py). h_t = exp(log_a_t) h_{t-1} + b_t over
 log_a, b (B, S, W), each float32 or bfloat16, from h0 (B, W) float32.
 Returns h_all (B, S, W) and h_T (B, W), both float32, for any S >= 1 and any
-W (no chunk or channel-block multiple).
+W (no chunk or channel-block multiple). The kernel is a blocked scan in one
+launch: 8 time segments of a tile scan at once and a carry joins them.
 
 The wrapper launches on `torch.cuda.current_stream()` and adds one to
 `rglru_cuda.launches` per launch; nothing else touches that count. It takes

@@ -7,7 +7,9 @@ model's layout — the kernel reads them through their strides, so a view
 needs no copy as long as its hs axis is contiguous — a bonus u (H, hs) and
 a carried state (B, H, hs, hs) in [key, value] layout. Returns y
 (B, S, H, hs) and the final state, both float32, for any S (no chunk
-multiple, no padding).
+multiple, no padding). The kernel is chunk-parallel in one launch: chunks
+of 8 tokens run at once from a zero state, and only the state is carried
+from chunk to chunk (its header gives the plan and its bound).
 
 The wrapper launches on `torch.cuda.current_stream()` and adds one to
 `wkv6_cuda.launches` per launch; nothing else touches that count. It takes

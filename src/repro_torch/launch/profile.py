@@ -13,13 +13,19 @@ tokens. For each it prints the measured wall time (host clock, ending in
 trace saw and its share of the wall time (the device's busy share; the
 rest is idle, waiting on the host), the number of kernel launches, and the
 kernels that took the most device time, and the launches of each of the
-port's own kernels (K1-K4) in each region. Needs a card.
+port's own kernels (K1-K4) in each region, by its counter and as the trace
+saw them. Needs a card.
 """
 from __future__ import annotations
 
 import argparse
 
 TOP = 10  # kernels listed per traced region
+# each port kernel's launch counter and the name its device kernels carry
+# in the trace (K1's split launch; K2's two kernels share the prefix)
+TRACE_NAMES = {"decode_attention": "decode_split_kernel",
+               "prefill_attention": "prefill_", "wkv6": "wkv6_kernel",
+               "rglru": "rglru_kernel"}
 
 
 def _device_us(evt) -> float:
@@ -46,6 +52,12 @@ def _report(title, prof, wall_s, top):
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
               f"x{n:<5d} {key[:90]}")
     print(f"  port kernel launches: {ops.launch_counts()}")
+    traced = {name: (sum(n for key, _, n in rows if sym in key),
+                     sum(us for key, us, _ in rows if sym in key) / 1e3)
+              for name, sym in TRACE_NAMES.items()}
+    print("  port kernels in the trace (launches, device ms): "
+          + ", ".join(f"{name} {n} {ms:.3f}"
+                      for name, (n, ms) in traced.items()))
     ops.reset_launch_counts()
     return busy_ms, launches
 

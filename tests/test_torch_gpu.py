@@ -19,14 +19,22 @@ against the eager call (not done yet: a persistent grid). K2
 qwen3-0.6b's heads; in bf16 it runs on the tensor cores (`mma.sync` fed by
 `ldmatrix`, K/V tiles streamed by `cp.async`), so its cases cover ragged S
 around the 64-row tiles, window 96, G in {1, 2, 8} and D in {16, 64, 128}
-(not done yet: `wgmma` and TMA); fp32 keeps the CUDA-core kernel. K3 is
-held against the step recurrence within 5e-5 of the result's magnitude
-(both widen bf16 inputs exactly and accumulate in fp32; only the order of
-the sums differs, and a long prefill whose decay is near 1 grows the
-state), K4 against the step recurrence within 1e-5 (fp32) and 1e-5 of the
-result's magnitude (bf16 inputs, widened exactly), each launch is
-counted, and the reduced models served through the kernels give the same
-greedy tokens as the torch paths."""
+(not done yet: `wgmma` and TMA); fp32 keeps the CUDA-core kernel. K3
+(`csrc/wkv6.cu`) is chunk-parallel: chunks of 8 tokens run at once, one
+warp each, the state is carried over them, and a block takes its chunks in
+passes; it is held against the step recurrence within 5e-5 of the
+result's magnitude (both widen bf16 inputs exactly and accumulate in fp32;
+only the order of the sums differs, and a long prefill whose decay is near
+1 grows the state) at the chunk and pass edges, each head size, under
+slow, default and strong decay (the full-width init's |cum logw| of
+10^2-10^3 per 64 tokens) and on strided views. K4 (`csrc/rglru.cu`) is a
+blocked scan of up to 16 segments a tile; it is held against the step recurrence
+within 1e-5 (fp32) and 1e-5 of the result's magnitude (bf16 inputs,
+widened exactly) at its segment and tile edges, W not a multiple of 32,
+and every mix of input dtypes. Each launch is counted, a CUDA-graph replay
+of K1, K3 and K4 equals the eager call bit for bit, and the reduced models
+served through the kernels give the same greedy tokens as the torch
+paths."""
 import numpy as np
 import pytest
 
@@ -227,14 +235,18 @@ def test_engine_kernels_match_torch_path_and_count_launches(cuda):
     assert counts["wkv6"] == 0
 
 
-def _wkv_inputs(dev, dtype, seed, B, S, H, hs, slow_decay=False):
+def _wkv_inputs(dev, dtype, seed, B, S, H, hs, slow_decay=False,
+                strong_decay=False):
     rs = np.random.RandomState(seed)
     n = lambda shape, sc: torch.from_numpy(  # noqa: E731
         (rs.standard_normal(shape) * sc).astype(np.float32)).to(dev)
     r, k, v = (n((B, S, H, hs), 0.5).to(getattr(torch, dtype))
                for _ in range(3))
-    # decay e^{-e^{x}}: x around -4 keeps it within a few % of 1
-    logw = -torch.exp(n((B, S, H, hs), 0.5) - (4.0 if slow_decay else 0.0))
+    # decay e^{-e^{x}}: x around -4 keeps it within a few % of 1; x around
+    # 1.5 gives |cum logw| of ~330 per 64 tokens, as rwkv6-3b's full-width
+    # init does (10^2-10^3)
+    shift = -4.0 if slow_decay else (1.5 if strong_decay else 0.0)
+    logw = -torch.exp(n((B, S, H, hs), 0.5) + shift)
     return r, k, v, logw, n((H, hs), 0.3), n((B, H, hs, hs), 0.2)
 
 
@@ -243,15 +255,34 @@ def _wkv_err(got, want):
                for g, w in zip(got, want))
 
 
+# K3 takes its tokens in chunks of 8 (`kC` in csrc/wkv6.cu) and its chunks in
+# passes of as many as a block's shared memory holds: 4 (fp32) or 5 (bf16)
+# at hs = 64, 7 or 10 at hs = 32, 12 at hs = 16
+WKV_CHUNK = 8
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,H,hs,slow", [(1, 1, 40, 64, False),
-                                           (1, 24, 4, 16, False),
-                                           (2, 77, 3, 32, False),
-                                           (1, 150, 40, 64, False),
-                                           (1, 512, 40, 64, True)])
-def test_cuda_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, hs, slow):
-    args = _wkv_inputs(cuda, dtype, 0, B, S, H, hs, slow_decay=slow)
+@pytest.mark.parametrize("B,S,H,hs,decay", [
+    (1, 1, 40, 64, "default"), (1, 24, 4, 16, "default"),
+    (2, 77, 3, 32, "default"), (1, 150, 40, 64, "default"),
+    (1, 512, 40, 64, "slow"),
+    # the full-width init's decays at the chunk and pass edges (33, 41, 57,
+    # 81 and 97 are one token past a pass of the dtype's and head size's
+    # chunk count), each head size
+    (2, 1, 5, 64, "strong"), (2, WKV_CHUNK - 1, 5, 64, "strong"),
+    (2, WKV_CHUNK + 1, 5, 64, "strong"), (2, 33, 5, 64, "strong"),
+    (2, 41, 5, 64, "strong"), (2, 81, 5, 64, "strong"),
+    (2, 300, 5, 64, "strong"), (2, 512, 5, 64, "strong"),
+    (2, 1, 5, 16, "strong"), (2, WKV_CHUNK + 1, 5, 16, "strong"),
+    (2, 97, 5, 16, "strong"), (2, 129, 5, 16, "strong"),
+    (2, 512, 5, 16, "strong"), (2, WKV_CHUNK - 1, 5, 32, "strong"),
+    (2, 57, 5, 32, "strong"), (2, 81, 5, 32, "strong"),
+    (2, 129, 5, 32, "strong"), (2, 512, 5, 32, "strong")])
+def test_cuda_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, hs, decay):
+    args = _wkv_inputs(cuda, dtype, 0, B, S, H, hs,
+                       slow_decay=decay == "slow",
+                       strong_decay=decay == "strong")
     before = wkv6_cuda.launches
     got = ops.wkv6(*args)
     want = wkv6_plain(*args)
@@ -262,15 +293,73 @@ def test_cuda_wkv6_kernel_matches_plain(cuda, dtype, B, S, H, hs, slow):
 
 
 @pytest.mark.gpu
-def test_cuda_wkv6_reads_strided_views(cuda):
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_wkv6_rows_off_16_byte_alignment(cuda, dtype):
+    """r, k, v, logw one element past a 16-byte boundary: the kernel stages
+    them element by element instead of in 16-byte pieces, with the same
+    result as the plain version."""
+    args = _wkv_inputs(cuda, dtype, 5, 1, 45, 4, 32, strong_decay=True)
+
+    def shifted(x):
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)
+        out = flat[1:].view(x.shape)
+        out.copy_(x)
+        return out
+
+    moved = [shifted(x) for x in args[:4]]
+    assert moved[0].data_ptr() % 16 != 0
+    got = wkv6_cuda(*moved, *args[4:])
+    assert _wkv_err(got, wkv6_plain(*args)) < WKV_RTOL
+
+
+def _graph_replay_equals_eager(inputs, call):
+    """Capture `call()` in a CUDA graph, copy new values into `inputs` and
+    replay: the captured outputs equal a fresh eager call's bit for bit (the
+    kernels sum in a fixed order and read nothing back to the host)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        call()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    for _ in range(2):
+        for x in inputs:
+            x.copy_(x.roll(1, -1))  # new values of the same distribution
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+@pytest.mark.gpu
+def test_cuda_wkv6_graph_replay_equals_eager(cuda):
+    r, k, v, logw, u, s0 = _wkv_inputs(cuda, "bfloat16", 6, 1, 150, 40, 64)
+    _graph_replay_equals_eager(
+        (r, k, v, logw, u, s0), lambda: wkv6_cuda(r, k, v, logw, u, s0))
+
+
+@pytest.mark.gpu
+def test_cuda_rglru_graph_replay_equals_eager(cuda):
+    la, b, h0 = _rglru_inputs(cuda, "float32", 7, 1, 150, 4096)
+    _graph_replay_equals_eager((la, b, h0), lambda: rglru_cuda(la, b, h0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S,hs,strong", [(33, 32, False), (300, 64, True)])
+def test_cuda_wkv6_reads_strided_views(cuda, S, hs, strong):
     """r, k, v as head slices of wider tensors (hs axis contiguous, other
-    strides free) give the contiguous copies' result exactly."""
-    r, k, v, logw, u, s0 = _wkv_inputs(cuda, "bfloat16", 1, 2, 33, 6, 32)
+    strides free) give the contiguous copies' result exactly, within the
+    tolerance of the plain version, under strong decay too."""
+    r, k, v, logw, u, s0 = _wkv_inputs(cuda, "bfloat16", 1, 2, S, 6, hs,
+                                       strong_decay=strong)
     wide = [torch.cat([x, x], dim=2)[:, :, 3:9] for x in (r, k, v, logw)]
     assert not wide[0].is_contiguous()
     a = ops.wkv6(*wide, u, s0)
     b = ops.wkv6(*(x.contiguous() for x in wide), u, s0)
     assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert _wkv_err(a, wkv6_plain(*wide, u, s0)) < WKV_RTOL
 
 
 @pytest.mark.gpu
@@ -327,18 +416,30 @@ def _rglru_inputs(dev, dtype, seed, B, S, W):
         n((B, W), 0.2)
 
 
+# K4 splits a tile of up to 16 x 16 steps evenly over up to 16 segments
+RGLRU_SEG_LEN = 16
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("B,S,W", [(1, 1, 4096), (1, 24, 4096),
-                                   (1, 150, 4096), (1, 512, 4096),
-                                   (2, 200, 2560), (3, 37, 100)])
-def test_cuda_rglru_kernel_matches_plain(cuda, dtype, B, S, W):
-    """S = 1, the served shapes, a W that is not a multiple of the block
-    and an S that is not a multiple of the tile."""
-    args = _rglru_inputs(cuda, dtype, 0, B, S, W)
+@pytest.mark.parametrize("dtype,b_dtype", [
+    ("float32", "float32"), ("bfloat16", "bfloat16"),
+    ("float32", "bfloat16"), ("bfloat16", "float32")])
+@pytest.mark.parametrize("B,S,W", [
+    (1, 1, 4096), (1, 24, 4096), (1, 150, 4096), (1, 512, 4096),
+    (2, 200, 2560), (3, 37, 100),
+    # one step short of a full segment, one past a full tile, W not a
+    # multiple of 32
+    (1, RGLRU_SEG_LEN - 1, 2560), (1, 16 * RGLRU_SEG_LEN + 1, 2560),
+    (1, 1, 4095), (1, 24, 4095), (1, 16 * RGLRU_SEG_LEN + 1, 4095),
+    (1, 512, 4095)])
+def test_cuda_rglru_kernel_matches_plain(cuda, dtype, b_dtype, B, S, W):
+    """S = 1, the served shapes, the segment and tile edges, W that are not
+    a multiple of the block, every mix of input dtypes."""
+    la = _rglru_inputs(cuda, dtype, 0, B, S, W)[0]
+    _, b, h0 = _rglru_inputs(cuda, b_dtype, 0, B, S, W)
     before = rglru_cuda.launches
-    got = ops.rglru_scan(*args)
-    want = rglru_plain(*args)
+    got = ops.rglru_scan(la, b, h0)
+    want = rglru_plain(la, b, h0)
     torch.cuda.synchronize()
     assert rglru_cuda.launches == before + 1
     assert got[0].dtype == torch.float32 and got[0].shape == (B, S, W)
