@@ -5,8 +5,10 @@
 
 Drives the port's three served paths — ConServe over `ReplicaEngine`,
 `EngineServer` and `make_scheduler("conserve")`, serving qwen3-0.6b,
-rwkv6-3b and recurrentgemma-9b at full width — and holds each hand-written
-CUDA kernel of those paths against its plain PyTorch version on the card.
+rwkv6-3b and recurrentgemma-9b at full width — then qwen3-0.6b under the
+paper's baselines, through failures and live through the gateway, and
+holds each hand-written CUDA kernel of those paths against its plain
+PyTorch version on the card.
 Phases, each raising on failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
@@ -54,7 +56,27 @@ Phases, each raising on failure:
      as in 5b — all complete, one transfer per conversation, K4's counter
      > 0 and a multiple of 26, and K1's and K2's at 0 (its attention layers
      are all local, which the reference, too, runs outside its attention
-     kernels).
+     kernels);
+ 10. full-width qwen3-0.6b, the paper's comparison and the failure
+     contract, strict accounting, K1's and K2's counters > 0 over each run:
+     (a) bf16, phase 5b's trace under ampd, full_disagg (1 prefiller + 2
+     decoders) and collocated (3 mixed replicas) beside 5b's conserve —
+     all complete and drain, conserve moves KV once with no remote turn,
+     full_disagg has remote turns and more transfers, collocated none;
+     each run's serving numbers and its count of streams equal to
+     conserve's (measured: bf16 rounds the two build orders of a KV
+     differently), with the logits at the first differences recomputed;
+     (b) fp32 with TF32 off under conserve: failure-free, decoder 1 killed
+     as it begins decoding a turn >= 1 (the replay re-prefills completed
+     turns), and killed then recovered 0.5 logical s later (it must rejoin
+     cold: 0 KV, 0 slots, an EMA of 0, and end ACTIVE) — the streams must
+     be byte-identical to the failure-free run's, or at each first
+     difference both tokens must lie within twice the two orders' largest
+     logit difference of the top logit, in a band of at most 4 tokens
+     (each token's rank and gap printed); (c) bf16, the trace live
+     through the gateway with decoder 1 killed the same way — all complete,
+     the gateway's counts add up, its `recovery` events equal the server's
+     recoveries.
 
 Each model is freed before the next is loaded. The last four lines of
 standard output are the script's wall time, the card's name and power
@@ -657,44 +679,59 @@ def golden_summary(cfg, params, device):
 
 
 def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
-                    max_ctx=1024):
-    """1 prefiller + 2 decoders under ConServe on the launcher's engine
-    trace. Returns (summary, server, replicas)."""
+                    max_ctx=1024, scheduler="conserve", server_cls=None,
+                    live=False):
+    """The launcher's engine deployment under `scheduler` (1 prefiller + 2
+    decoders, or 3 mixed replicas under collocated) on its engine trace,
+    tokens recorded. `live` serves it through the gateway
+    (`serve_scenario_live`). Returns (summary, server, replicas, gateway or
+    None)."""
     from repro_torch.core import make_scheduler
     from repro_torch.core.metrics import summarize
     from repro_torch.engine import EngineServer, ReplicaEngine
-    from repro_torch.launch.serve import engine_trace
+    from repro_torch.launch.serve import engine_roles, engine_trace
     reps = [ReplicaEngine(cfg, params, n_slots=n_slots, max_ctx=max_ctx,
-                          replica_id=i, role="prefill" if i == 0 else "decode",
-                          attention_impl="cuda") for i in range(3)]
-    srv = EngineServer(make_scheduler("conserve"), reps,
-                       strict_accounting=True)
-    recs = srv.serve(engine_trace(n_conversations))
+                          replica_id=i, role=role, attention_impl="cuda")
+            for i, role in enumerate(engine_roles(scheduler))]
+    srv = (server_cls or EngineServer)(make_scheduler(scheduler), reps,
+                                       record_tokens=True,
+                                       strict_accounting=True)
+    gw = None
+    if live:
+        from repro_torch.serve import serve_scenario_live
+        recs, gw, _ = serve_scenario_live(srv, engine_trace(n_conversations))
+    else:
+        recs = srv.serve(engine_trace(n_conversations))
     s = summarize(recs)
     if s["n_conversations"] != n_conversations:
         raise AssertionError(f"{s['n_conversations']} of {n_conversations} "
                              "conversations completed")
-    if s["kv_transfers_per_conv"] != 1.0:
+    if (scheduler == "conserve" and server_cls is None
+            and s["kv_transfers_per_conv"] != 1.0):
         raise AssertionError(f"kv_transfers_per_conv "
                              f"{s['kv_transfers_per_conv']} != 1.0")
     srv.check_accounting()
     for r in reps:
         if r.kv.active.any() or r.kv.active_kv_tokens:
             raise AssertionError(f"replica {r.replica_id} did not drain")
-    return s, srv, reps
+    return s, srv, reps, gw
 
 
 def serve_and_count(torch, cfg, params, card, path_kernels, label,
-                    absent=()):
+                    absent=(), **serve_kw):
     """Serve the main path with every launch count set to 0 just before
     and read just after; fail unless each kernel of `path_kernels` ran and
-    each of `absent` did not. Returns this path's counts."""
+    each of `absent` did not. Returns (this path's counts, the run: summary,
+    server, gateway, streams, remote turns, launches)."""
+    import gc
+
     from repro_torch.kernels import ops
+    gc.collect()  # a finished server's reference cycles hold its caches
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    s, srv, reps = serve_main_path(cfg, params)
+    s, srv, reps, gw = serve_main_path(cfg, params, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -711,19 +748,26 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
     pre_s = sum(r.prefill_s for r in reps)
     dec_tok = sum(r.n_decode_tokens for r in reps)
     dec_s = sum(r.decode_s for r in reps)
-    log(f"  {label}1 prefiller + 2 decoders, {s['n_conversations']} "
+    remote = sum(r.n_remote_turns for r in srv.records.values())
+    per_transfer = (f"{srv.transfer_bytes / srv.n_transfers:.0f} B per "
+                    f"transfer" if srv.n_transfers else "no transfer")
+    layout = ("3 mixed replicas" if reps[0].role == "mixed"
+              else "1 prefiller + 2 decoders")
+    log(f"  {label}{layout}, {s['n_conversations']} "
         f"conversations, kv_transfers_per_conv "
-        f"{s['kv_transfers_per_conv']}, wall {wall:.2f} s, launches "
-        f"{launches}")
+        f"{s['kv_transfers_per_conv']}, remote turns {remote}, wall "
+        f"{wall:.2f} s, launches {launches}")
     log(f"  [{card}] ttfet_p95 {s['ttfet_p95']:.4f} s, last_tbt_gmean "
         f"{s['last_tbt_gmean'] * 1e3:.3f} ms, last_tbt_p95 "
         f"{s['last_tbt_p95'] * 1e3:.3f} ms, prefill {pre_tok / pre_s:.1f} "
         f"tok/s ({pre_tok} tok), decode {dec_tok / dec_s:.1f} tok/s "
         f"({dec_tok} tok), peak device memory {peak:.3f} GiB, "
-        f"{srv.transfer_bytes / srv.n_transfers:.0f} B per transfer "
-        f"(nbytes_of), kernel build charged to compile_s "
+        f"{per_transfer} (nbytes_of), kernel build charged to compile_s "
         f"{sum(r.compile_s for r in reps):.3f} s")
-    return {n: launches[n] for n in path_kernels}
+    streams = {k: [int(t) for t in v] for k, v in srv.sampled_tokens.items()}
+    run = dict(summary=s, srv=srv, gw=gw, streams=streams, remote=remote,
+               launches=dict(launches))
+    return {n: launches[n] for n in path_kernels}, run
 
 
 def phase_serve(torch, cfg, device, card):
@@ -738,12 +782,13 @@ def phase_serve(torch, cfg, device, card):
                              f"{GOLDEN.relative_to(ROOT)}")
     log("  (a) golden-trace summary equals tests/golden/"
         "decode_golden_trace.json")
-    launches = serve_and_count(torch, cfg, params, card,
-                               ("decode_attention", "prefill_attention"),
-                               "(b) ")
+    launches, run = serve_and_count(torch, cfg, params, card,
+                                    ("decode_attention", "prefill_attention"),
+                                    "(b) ")
     del params
     torch.cuda.empty_cache()
-    return launches
+    # phase 10 compares against this run; the replicas and their caches go
+    return launches, {k: v for k, v in run.items() if k not in ("srv", "gw")}
 
 
 # --------------------------------------------------------------------------- #
@@ -842,7 +887,7 @@ def phase_rwkv_serve(torch, cfg, device, card):
     log(f"phase 7: {cfg.name} full width {cfg.dtype}, EngineServer + "
         f"ConServe, strict accounting")
     params = build_model(cfg).init(0, device)
-    launches = serve_and_count(torch, cfg, params, card, ("wkv6",), "")
+    launches, _ = serve_and_count(torch, cfg, params, card, ("wkv6",), "")
     if launches["wkv6"] % cfg.n_layers:
         raise AssertionError(f"{launches['wkv6']} K3 launches are not "
                              f"{cfg.n_layers} per prefill")
@@ -928,13 +973,282 @@ def phase_rg_serve(torch, cfg, device, card):
     log(f"phase 9: {cfg.name} full width {cfg.dtype}, EngineServer + "
         f"ConServe, strict accounting")
     params = build_model(cfg).init(0, device)
-    launches = serve_and_count(torch, cfg, params, card, ("rglru",), "",
-                               absent=("decode_attention",
-                                       "prefill_attention", "wkv6"))
+    launches, _ = serve_and_count(torch, cfg, params, card, ("rglru",), "",
+                                  absent=("decode_attention",
+                                          "prefill_attention", "wkv6"))
     if launches["rglru"] % 26:
         raise AssertionError(f"{launches['rglru']} K4 launches are not 26 "
                              "per prefill")
     del params
+    torch.cuda.empty_cache()
+    return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 10: the paper's comparison and the failure contract, qwen3-0.6b
+# --------------------------------------------------------------------------- #
+COMPARED = ("conserve", "ampd", "full_disagg", "collocated")
+PATH_KERNELS = ("decode_attention", "prefill_attention")
+REJOIN_AFTER_S = 0.5  # logical seconds from the kill to recover_replica
+
+
+def kill_when_decoding(rejoin_after_s=None):
+    """An `EngineServer` that kills decoder 1 the first time it begins
+    decoding a turn with turn_idx >= 1 (a condition, not a clock, so the
+    replay must re-prefill completed turns) and, with `rejoin_after_s`,
+    recovers it that many logical seconds after the kill: the port's
+    `chaos.triggers.FailWhen`. Its `killed` and `at_rejoin` keep what it
+    killed and the node's state at the rejoin."""
+    import functools
+
+    from repro_torch.chaos.triggers import FailWhen
+    from repro_torch.engine import EngineServer
+
+    class KillWhenDecoding(FailWhen, EngineServer):
+        pass
+
+    return functools.partial(KillWhenDecoding, victim_node=1, min_turn=1,
+                             rejoin_after_s=rejoin_after_s)
+
+
+def first_divergences(want, got):
+    """Per conversation, the first (cid, turn, position) where `got`'s
+    streams leave `want`'s, in turn order: a flipped token changes the
+    rest of that turn and the context of every later turn, so only the
+    first is a fact about the numerics."""
+    if set(want) != set(got):
+        raise AssertionError(f"stream keys differ: "
+                             f"{sorted(set(want) ^ set(got))[:6]}")
+    out = []
+    for cid in sorted({k[0] for k in want}):
+        for turn in sorted(k[1] for k in want if k[0] == cid):
+            a, b = want[(cid, turn)], got[(cid, turn)]
+            if a != b:
+                if len(a) != len(b):
+                    raise AssertionError(f"stream ({cid}, {turn}) has "
+                                         f"{len(b)} tokens, not {len(a)}")
+                out.append((cid, turn, next(i for i, (x, y) in
+                                            enumerate(zip(a, b)) if x != y)))
+                break
+    return out
+
+
+def two_order_logits(torch, model, params, segments, device):
+    """The logits after `segments` ("prefill" or "decode", tokens) in two
+    orders: as the serving engine built them (a fresh prefill, then each
+    fed token through a decode step and each later input through an
+    append-prefill) and in one prefill of the whole context (how a replay
+    rebuilds it). Attention through K1 and K2 where the engine uses them."""
+    import numpy as np
+    from repro_torch.models.model import merge_decode_cache
+
+    def tens(toks):
+        return torch.as_tensor(np.asarray(toks, np.int32), device=device)
+
+    whole = np.concatenate([np.asarray(t, np.int32) for _, t in segments])
+    one, _ = model.prefill(params, tens(whole)[None], attention_impl="cuda")
+    caches, pos, logits = None, 0, None
+    for kind, toks in segments:
+        if kind == "prefill" and len(toks):
+            if caches is None:
+                logits, caches = model.prefill(params, tens(toks)[None],
+                                               attention_impl="cuda")
+            else:
+                logits, new = model.prefill(params, tens(toks)[None],
+                                            caches=caches, start_pos=pos,
+                                            attention_impl="cuda")
+                caches = merge_decode_cache(caches, new)
+            pos += len(toks)
+        elif kind == "decode":
+            for t in toks:
+                p = tens([pos])
+                logits, up = model.decode_step(params, tens([t]), caches, p,
+                                               kv_lens=p,
+                                               attention_impl="cuda")
+                caches = merge_decode_cache(caches, up)
+                pos += 1
+    V = model.cfg.vocab_size
+    return logits[0, :V].float(), one[0, :V].float()
+
+
+NEAR_TIE_BAND_MAX = 4  # fp32: the most tokens the band may hold
+
+
+def tie_report(torch, cfg, params, srv, want, got, cid, turn, pos, device):
+    """Recompute the logits at the first position where `got` leaves
+    `want`, in both orders, and print for each order the two tokens' ranks
+    and gaps to the top logit, the orders' largest logit difference delta,
+    and how many tokens lie within 2 delta of the top (the band). Returns
+    (both tokens lie in the band in both orders, the larger band count).
+    The recompute runs at batch 1, so K1's split plan and the projection
+    shapes need not be the engine's: delta is the two orders' difference
+    at batch 1, not the difference the engine saw."""
+    from repro_torch.launch.serve import engine_trace
+    from repro_torch.models import build_model
+    conv = next(c for c in engine_trace(8) if c.cid == cid)
+    segments = []
+    for t in range(turn):
+        segments += [("prefill", srv._turn_tokens(conv, t)),
+                     ("decode", want[(cid, t)][:-1])]
+    segments += [("prefill", srv._turn_tokens(conv, turn)),
+                 ("decode", want[(cid, turn)][:pos])]
+    inc, one = two_order_logits(torch, build_model(cfg), params, segments,
+                                device)
+    ta, tb = want[(cid, turn)][pos], got[(cid, turn)][pos]
+    delta = float((inc - one).abs().max())
+    in_band, band, desc = True, 0, []
+    for name, lg in (("incremental", inc), ("one prefill", one)):
+        top = float(lg.max())
+        n_close = int((lg >= top - 2 * delta).sum())
+        band = max(band, n_close)
+        facts = []
+        for tok in (ta, tb):
+            gap = top - float(lg[tok])
+            in_band &= gap <= 2 * delta
+            facts.append(f"{tok} rank {1 + int((lg > lg[tok]).sum())} gap "
+                         f"{gap:.6f}")
+        desc.append(f"{name}: {', '.join(facts)}, {n_close} tokens in the "
+                    f"band")
+    log(f"    first difference at conversation {cid} turn {turn} token "
+        f"{pos} ({ta} vs {tb}, {sum(len(t) for _, t in segments)} tokens "
+        f"of context, recomputed at batch 1): {'; '.join(desc)}; "
+        f"max|difference| of the two orders' logits delta {delta:.3e} at "
+        f"max|logit| {float(one.abs().max()):.3f}, band 2 delta")
+    return in_band, band
+
+
+def count_equal(want, got):
+    return sum(1 for k in want if got.get(k) == want[k]), len(want)
+
+
+def phase_compare(torch, cfg, device, card, conserve):
+    """(a) the four schedulers in bf16 on phase 5b's trace, (b) the failure
+    contract in fp32, (c) the live gateway under a failure. Returns the
+    launches of K1 and K2 in each run."""
+    from repro_torch.core.signals import NODE_ACTIVE
+    from repro_torch.models import build_model
+    log(f"phase 10: {cfg.name} full width, the paper's comparison and the "
+        f"failure contract, strict accounting")
+    launches = {"conserve": conserve["launches"]}
+
+    # (a) bf16, the four schedulers; ConServe is phase 5b's run
+    params = build_model(cfg).init(0, device)
+    log(f"  (a) {cfg.dtype}: conserve is phase 5b's run (transfers per "
+        f"conversation {conserve['summary']['kv_transfers_per_conv']}, "
+        f"remote turns {conserve['remote']})")
+    runs = {"conserve": conserve}
+    for sched in COMPARED[1:]:
+        launches[sched], run = serve_and_count(
+            torch, cfg, params, card, PATH_KERNELS, f"(a) {sched}: ",
+            scheduler=sched)
+        n_eq, n = count_equal(conserve["streams"], run["streams"])
+        log(f"    {n_eq} of {n} (cid, turn) streams equal to conserve's "
+            f"(bf16: measured, not gated)")
+        for cid, turn, pos in first_divergences(conserve["streams"],
+                                                run["streams"])[:2]:
+            _, band = tie_report(torch, cfg, params, run["srv"],
+                                 conserve["streams"], run["streams"], cid,
+                                 turn, pos, device)
+            log(f"    bf16: the band holds {band} tokens, so a token in it "
+                f"says nothing of a tie (reported, not a verdict)")
+        runs[sched] = {k: v for k, v in run.items() if k not in ("srv", "gw")}
+        del run
+    tpc = {k: r["summary"]["kv_transfers_per_conv"] for k, r in runs.items()}
+    if tpc["conserve"] != 1.0 or runs["conserve"]["remote"]:
+        raise AssertionError("conserve moved KV more than once")
+    if not (runs["full_disagg"]["remote"] > 0
+            and tpc["full_disagg"] > tpc["conserve"]):
+        raise AssertionError(f"full_disagg: {runs['full_disagg']['remote']}"
+                             f" remote turns, {tpc['full_disagg']} "
+                             f"transfers per conversation")
+    if tpc["collocated"] != 0.0:
+        raise AssertionError("collocated moved KV")
+    log(f"  (a) transfers per conversation {tpc}; remote turns "
+        + ", ".join(f"{k} {r['remote']}" for k, r in runs.items()))
+    del params
+    torch.cuda.empty_cache()
+
+    # (b) fp32 with TF32 off: failure replay and a cold rejoin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = cfg.scaled(dtype="float32")
+    params = build_model(cfg32).init(0, device)
+    launches["fp32"], base = serve_and_count(
+        torch, cfg32, params, card, PATH_KERNELS, "(b) fp32 failure-free: ")
+    base = base["streams"]
+    for label, rejoin in (("killed", None), ("killed + rejoin",
+                                             REJOIN_AFTER_S)):
+        cls = kill_when_decoding(rejoin)
+        _, run = serve_and_count(torch, cfg32, params, card, PATH_KERNELS,
+                                 f"(b) fp32 {label}: ", server_cls=cls)
+        srv = run["srv"]
+        if srv.killed is None:
+            raise AssertionError("decoder 1 never decoded a turn >= 1")
+        replayed = sum(st.replayed_prefill_tokens
+                       for st in srv.states.values())
+        cid, turn, _, t_kill = srv.killed
+        log(f"    killed decoder 1 at {t_kill:.4f} s as conversation {cid} "
+            f"began decoding turn {turn}; recoveries {srv.n_recoveries}, "
+            f"replayed prefill tokens {replayed}")
+        if srv.n_recoveries < 1 or not srv.records[cid].recovered \
+                or replayed <= 0:
+            raise AssertionError("no recovery recorded")
+        if rejoin is not None:
+            st = srv.states[1]
+            want = dict(node_id=1, reason="from_dead", alive=True,
+                        lifecycle=NODE_ACTIVE, kv=0, slots=0, convs=0,
+                        ema=0.0)
+            log(f"    rejoin {REJOIN_AFTER_S} s after the kill: at the "
+                f"rejoin {srv.at_rejoin}; at the end alive {st.alive}, "
+                f"{st.lifecycle}, in view "
+                f"{any(n.node_id == 1 for n in srv.view.nodes())}")
+            if srv.at_rejoin != want:
+                raise AssertionError(f"decoder 1 did not rejoin cold: "
+                                     f"{srv.at_rejoin}")
+            if not (st.alive and st.lifecycle == NODE_ACTIVE and any(
+                    n.node_id == 1 for n in srv.view.nodes())):
+                raise AssertionError("decoder 1 did not end ACTIVE")
+        n_eq, n = count_equal(base, run["streams"])
+        log(f"    {n_eq} of {n} (cid, turn) streams byte-identical to the "
+            f"failure-free run")
+        for cid, turn, pos in first_divergences(base, run["streams"]):
+            in_band, band = tie_report(torch, cfg32, params, srv, base,
+                                       run["streams"], cid, turn, pos,
+                                       device)
+            ok = in_band and band <= NEAR_TIE_BAND_MAX
+            log(f"    fp32 gate: both tokens in the band {in_band}, the "
+                f"band holds {band} tokens (at most {NEAR_TIE_BAND_MAX}) "
+                f"-> {'a near-tie' if ok else 'NOT a near-tie'}")
+            if not ok:
+                raise AssertionError("fp32 replay diverged, not at a "
+                                     "near-tie")
+        launches[f"fp32 {label}"] = run["launches"]
+        del run, srv
+    del params
+    torch.cuda.empty_cache()
+
+    # (c) bf16, live through the gateway with a decoder failure
+    params = build_model(cfg).init(0, device)
+    _, run = serve_and_count(torch, cfg, params, card, PATH_KERNELS,
+                             "(c) live, killed: ", live=True,
+                             server_cls=kill_when_decoding())
+    srv, gw = run["srv"], run["gw"]
+    h = gw.health()
+    ev = h["events_seen"]
+    log(f"    gateway: {h['n_submitted']} submitted, {h['n_done']} done, "
+        f"{h['n_shed']} shed; node_failure {ev.get('node_failure', 0)}, "
+        f"recovery {ev.get('recovery', 0)}, n_recoveries "
+        f"{srv.n_recoveries}")
+    if not (h["n_submitted"] == h["n_done"] == 8 and h["n_shed"] == 0
+            and ev.get("node_failure") == 1
+            and ev.get("recovery", 0) == srv.n_recoveries >= 1
+            and gw.streams == srv.sampled_tokens):
+        raise AssertionError("the live run's gateway counts do not add up")
+    n_eq, n = count_equal(conserve["streams"], run["streams"])
+    log(f"  (c) {n_eq} of {n} (cid, turn) streams equal to the offline "
+        f"conserve run's (bf16: measured, not gated)")
+    launches["live"] = run["launches"]
+    del params, run, srv, gw
     torch.cuda.empty_cache()
     return launches
 
@@ -998,11 +1312,14 @@ def main(argv=None) -> int:
         print(json.dumps({"kernels": recs}))
         return 0
     phase_fp32_parity(torch, cfg, device)
-    launches = phase_serve(torch, cfg, device, card)
+    launches, conserve_run = phase_serve(torch, cfg, device, card)
     phase_rwkv_fp32_parity(torch, rcfg, device)
     launches.update(phase_rwkv_serve(torch, rcfg, device, card))
     phase_rg_fp32_parity(torch, gcfg, device)
     launches.update(phase_rg_serve(torch, gcfg, device, card))
+    t10 = time.perf_counter()
+    compared = phase_compare(torch, cfg, device, card, conserve_run)
+    log(f"phase 10 wall {time.perf_counter() - t10:.1f} s")
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
@@ -1014,6 +1331,9 @@ def main(argv=None) -> int:
                     replaces=replaces[n], launches=launches[n], **recs[n])
                for n in ("decode_attention", "prefill_attention", "wkv6",
                          "rglru")]
+    for k in kernels[:2]:  # K1 and K2: their launches in each phase-10 run
+        k["phase10_launches"] = {run: c[k["name"]]
+                                 for run, c in compared.items()}
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

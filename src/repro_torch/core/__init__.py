@@ -2,6 +2,7 @@ from .conversation import Conversation, ConversationView, Turn, TurnView, view_o
 from .scheduler import Placement, Scheduler, SCHEDULERS, make_scheduler
 from .conserve import (ConServeRebalanceScheduler, ConServeScheduler,
                        ConServeSJFRefillScheduler)
+from .baselines import AMPDScheduler, CollocatedScheduler, FullDisaggScheduler
 from .signals import ClusterView, NodeState, PrefillLatencyCurve
 from .events import (EventBus, ServeEvent, EVENT_KINDS, EV_SESSION,
                      EV_TOKENS, EV_TURN_FINISH, EV_ADMISSION_PARK,

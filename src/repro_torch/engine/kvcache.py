@@ -244,7 +244,13 @@ class SlotKVCache:
                 "length": length}
 
     def import_slot(self, slot: int, package: Dict[str, Any]):
-        self.write_prefill(slot, package["caches"], package["length"])
+        """Install a transferred package as the slot's whole live cache, from
+        position 0, whatever the slot held before. A remote turn returns the
+        grown KV to the decoder's occupied slot; the JAX package's
+        `import_slot` writes it at the slot's current length instead (F11),
+        which misplaces every row the remote turn returns."""
+        fold_prefill(self.caches, package["caches"], slot, 0)
+        self.lengths[slot] = package["length"]
 
     def export_slot_full(self, slot: int):
         """Full-buffer prefix VIEW of a slot (growing leaves right-padded

@@ -1,27 +1,52 @@
-"""Serving launcher of the port: the ConServe deployment on real replicas.
+"""Serving launcher of the port: the ConServe deployment driver.
 
-  python -m repro_torch.launch.serve --engine
+Two modes:
+  --engine  : real replicas of the port on one device (the card by
+              default; `--device cpu` for a CPU run)
+  --sim     : the calibrated discrete-event cluster runtime (no model, no
+              device)
+
+Both drive their backend through the ONE shared
+`repro_torch.core.runtime.Runtime` contract (submit/run/results + admission
+control), so the launcher — like the schedulers — cannot tell the two
+scales apart.
+
+  python -m repro_torch.launch.serve (--engine | --sim)
          [--arch qwen3-0.6b|rwkv6-3b|recurrentgemma-9b]
          [--device cuda|cpu] [--slots N] [--n-conversations N]
-         [--scheduler NAME]
+         [--scheduler NAME] [--gateway] [--scenario NAME] [--seed S]
 
-One prefiller and two decoders, each a `ReplicaEngine` of the reduced
-`--arch` (default qwen3-0.6b) with seeded weights and slots of max_ctx
-1024, behind an `EngineServer` with the chosen scheduler, replay a generated
-agentic trace through the shared `Runtime` contract and print the serving
-summary. A replica refuses max_ctx > window for a model with local
-attention, and the reduced recurrentgemma-9b's window is 64: the launcher
-widens a reduced window below max_ctx to max_ctx, and says so. `--device`
-defaults to cuda and fails without a card; pass `--device cpu` for a CPU
-run. (`chip_smoke.py` serves the models at full width.)
+`--engine` runs one prefiller and two decoders (three mixed replicas under
+`collocated`), each a `ReplicaEngine` of the reduced `--arch` (default
+qwen3-0.6b) with seeded weights and slots of max_ctx 1024. A replica
+refuses max_ctx > window for a model with local attention, and the reduced
+recurrentgemma-9b's window is 64: the launcher widens a reduced window below
+max_ctx to max_ctx, and says so. `--device` defaults to cuda and fails
+without a card. `--sim` runs `paper_deployment(scheduler)`.
+(`chip_smoke.py` serves the models at full width.)
+
+--scenario picks a named workload from the scenario library
+(`repro_torch.traces.SCENARIOS`); --gateway serves it LIVE through the async
+streaming gateway (staged arrivals, per-token event bus) instead of the
+offline submit+run batch path — same runtime, same records, plus live
+streaming observables.
 """
 import argparse
 
 
-def _drive(runtime, trace):
-    """The whole serving contract: submit + run, then the summary."""
+def _drive(runtime, trace, gateway: bool = False):
+    """The whole serving contract, backend-agnostic. With `gateway`, the
+    trace is injected live through `repro_torch.serve` (staged arrivals
+    driven by an asyncio loop) rather than submitted as one offline batch."""
     from repro_torch.core.metrics import summarize
-    recs = runtime.serve(trace)
+    if gateway:
+        from repro_torch.serve import serve_scenario_live
+        recs, gw, _ = serve_scenario_live(runtime, trace)
+        h = gw.health()
+        print(f"  gateway: {h['n_submitted']} submitted, {h['n_done']} done, "
+              f"{h['n_shed']} shed; events: {h['events_seen']}")
+    else:
+        recs = runtime.serve(trace)
     s = summarize(recs)
     for k in ("ttfet_gmean", "ttfet_p95", "last_tbt_gmean", "e2e_gmean",
               "kv_transfers_per_conv"):
@@ -44,50 +69,96 @@ def engine_trace(n_conversations: int):
     return generate_trace(n_conversations, 2.0, cfg=tc)
 
 
+def engine_roles(scheduler: str):
+    """Replica roles of the engine deployment: the collocated baseline
+    places every turn on a mixed replica; the others split one prefiller
+    from two decoders."""
+    if scheduler == "collocated":
+        return ("mixed",) * 3
+    return ("prefill", "decode", "decode")
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser()
     from repro_torch.core import SCHEDULERS
     from repro_torch.configs import ALL_ARCHS
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS)
     ap.add_argument("--engine", action="store_true")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--sim", action="store_true")
+    ap.add_argument("--device", default="cuda",
+                    help="engine: the replicas' device")
     ap.add_argument("--scheduler", default="conserve",
                     choices=sorted(SCHEDULERS))
     ap.add_argument("--n-conversations", type=int, default=12)
     ap.add_argument("--slots", type=int, default=16,
-                    help="KV slots per replica (small values exercise "
-                         "admission backpressure)")
+                    help="engine: KV slots per replica (small values "
+                         "exercise admission backpressure)")
     ap.add_argument("--no-rotation", action="store_true",
-                    help="disable continuous decode rotation (chunk-"
-                         "boundary-only admission)")
+                    help="engine: disable continuous decode rotation "
+                         "(chunk-boundary-only admission)")
     ap.add_argument("--prefill-mode", default=None,
                     choices=["jit", "reference"])
+    ap.add_argument("--gateway", action="store_true",
+                    help="serve LIVE through the async streaming gateway "
+                         "(staged arrivals + per-token event bus) instead "
+                         "of the offline batch path")
+    ap.add_argument("--scenario", default=None,
+                    help="named workload from the scenario library "
+                         "(pareto_burst, supervisor_worker, hitl_longpark, "
+                         "shared_preamble_fleet); default: the classic "
+                         "generate_trace workload")
+    ap.add_argument("--seed", type=int, default=0,
+                    help="scenario seed (byte-identical trace per seed)")
     args = ap.parse_args(argv)
-    if not args.engine:
-        ap.error("only --engine is ported to repro_torch so far")
 
-    from repro_torch.configs import get_reduced
-    from repro_torch.core import make_scheduler
-    from repro_torch.device import resolve_device
-    from repro_torch.engine import EngineServer, ReplicaEngine
-    from repro_torch.models import build_model
-    from repro_torch.models.config import ATTN_LOCAL
+    if args.engine:
+        from repro_torch.configs import get_reduced
+        from repro_torch.core import make_scheduler
+        from repro_torch.device import resolve_device
+        from repro_torch.engine import EngineServer, ReplicaEngine
+        from repro_torch.models import build_model
+        from repro_torch.models.config import ATTN_LOCAL
 
-    device = resolve_device(args.device)
-    cfg = get_reduced(args.arch)
-    max_ctx = 1024
-    if ATTN_LOCAL in cfg.block_pattern and 0 < cfg.window < max_ctx:
-        print(f"  {cfg.name} (reduced): window {cfg.window} -> {max_ctx} "
-              f"(a replica needs max_ctx <= window)")
-        cfg = cfg.scaled(window=max_ctx)
-    params = build_model(cfg).init(0, device)
-    reps = [ReplicaEngine(cfg, params, n_slots=args.slots, max_ctx=max_ctx,
-                          replica_id=i, role="prefill" if i == 0 else "decode")
-            for i in range(3)]
-    srv = EngineServer(make_scheduler(args.scheduler), reps,
-                       rotation=not args.no_rotation,
-                       prefill_mode=args.prefill_mode)
-    _drive(srv, engine_trace(args.n_conversations))
+        device = resolve_device(args.device)
+        cfg = get_reduced(args.arch)
+        max_ctx = 1024
+        if ATTN_LOCAL in cfg.block_pattern and 0 < cfg.window < max_ctx:
+            print(f"  {cfg.name} (reduced): window {cfg.window} -> {max_ctx} "
+                  f"(a replica needs max_ctx <= window)")
+            cfg = cfg.scaled(window=max_ctx)
+        params = build_model(cfg).init(0, device)
+        reps = [ReplicaEngine(cfg, params, n_slots=args.slots,
+                              max_ctx=max_ctx, replica_id=i, role=role)
+                for i, role in enumerate(engine_roles(args.scheduler))]
+        srv = EngineServer(make_scheduler(args.scheduler), reps,
+                           rotation=not args.no_rotation,
+                           prefill_mode=args.prefill_mode)
+        if args.scenario:
+            from repro_torch.traces import make_scenario
+            trace = make_scenario(args.scenario, args.n_conversations,
+                                  seed=args.seed, scale="engine")
+        else:
+            trace = engine_trace(args.n_conversations)
+        _drive(srv, trace, gateway=args.gateway)
+        return
+
+    if args.sim:
+        from repro_torch.cluster import paper_deployment
+        from repro_torch.traces import TraceConfig, generate_trace
+
+        sim = paper_deployment(args.scheduler)
+        if args.scenario:
+            from repro_torch.traces import make_scenario
+            trace = make_scenario(args.scenario, args.n_conversations,
+                                  seed=args.seed, scale="paper")
+        else:
+            trace = generate_trace(args.n_conversations, 1.634,
+                                   TraceConfig(seed=17))
+        _drive(sim, trace, gateway=args.gateway)
+        return
+
+    ap.error("pass --engine or --sim: lowering for a production mesh is "
+             "not ported to repro_torch yet")
 
 
 if __name__ == "__main__":

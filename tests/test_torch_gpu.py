@@ -504,3 +504,108 @@ def test_recurrentgemma_engine_kernel_matches_torch_path_and_counts(cuda):
     assert ops.launch_counts() == {"decode_attention": 0,
                                    "prefill_attention": 0, "wkv6": 0,
                                    "rglru": 2 * 2}
+
+
+# --------------------------------------------------------------------------- #
+# the paper's baselines and the failure contract, served through K1 and K2
+# --------------------------------------------------------------------------- #
+GPU_ROLES = {"conserve": ("prefill", "decode", "decode"),
+             "full_disagg": ("prefill", "decode", "decode"),
+             "ampd": ("prefill", "decode", "decode"),
+             "collocated": ("mixed", "mixed", "mixed")}
+
+
+def _gpu_serve(device, system, server_cls=None, server_kw=None,
+               **sched_kw):
+    from repro_torch.core import make_scheduler
+    from repro_torch.engine import EngineServer
+    from repro_torch.traces import TraceConfig, generate_trace
+    cfg = get_reduced("qwen3-0.6b")
+    params = build_model(cfg).init(0, device)
+    reps = [ReplicaEngine(cfg, params, n_slots=8, max_ctx=512, replica_id=i,
+                          role=r, attention_impl="cuda")
+            for i, r in enumerate(GPU_ROLES[system])]
+    srv = (server_cls or EngineServer)(
+        make_scheduler(system, **sched_kw), reps, record_tokens=True,
+        strict_accounting=True, **(server_kw or {}))
+    tc = TraceConfig(seed=5, first_input_median=60, first_input_sigma=0.3,
+                     first_input_max=120, append_median=16,
+                     append_sigma=0.4, append_max=40, output_median=6,
+                     output_sigma=0.5, output_max=12, mean_turns=3.0,
+                     max_turns=4, tool_mean_s=0.01)
+    ops.reset_launch_counts()
+    recs = srv.serve(generate_trace(6, 3.0, cfg=tc))
+    counts = ops.launch_counts()
+    assert len(recs) == 6
+    if device.type == "cuda":
+        assert counts["decode_attention"] > 0
+        assert counts["prefill_attention"] > 0
+    srv.check_accounting()
+    for r in reps:
+        assert not r.kv.active.any() and r.kv.active_kv_tokens == 0
+    streams = {k: [int(t) for t in v] for k, v in srv.sampled_tokens.items()}
+    return srv, recs, streams
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("system", ["collocated", "full_disagg", "ampd"])
+def test_baselines_serve_through_the_kernels(cuda, system):
+    """Each baseline completes through K1 and K2 with its transfer counts
+    (collocated none, full_disagg and AMPD at a wrong-prediction rate of
+    0.5 remote turns, two transfers each), and in fp32 its streams equal
+    ConServe's: where a turn is prefilled never changes what it computes."""
+    base, base_recs, base_streams = _gpu_serve(cuda, "conserve")
+    kw = {"wrong_prediction_rate": 0.5} if system == "ampd" else {}
+    srv, recs, streams = _gpu_serve(cuda, system, **kw)
+    remote = sum(r.n_remote_turns for r in recs)
+    if system == "collocated":
+        assert srv.n_transfers == 0 and remote == 0
+    else:
+        assert remote > 0
+        assert srv.n_transfers == len(recs) + 2 * remote > base.n_transfers
+    assert base.n_transfers == len(base_recs)
+    assert streams == base_streams
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rejoin", [False, True])
+def test_fp32_failure_replay_is_byte_identical(cuda, rejoin):
+    """Decoder 1 killed as it begins decoding a turn >= 1 (so the replay
+    re-prefills completed turns in one prefill), and with `rejoin` brought
+    back cold 0.05 logical s later: every stream equals the failure-free
+    run's byte for byte. On the fixed step clock the card's recovery
+    bookkeeping (the kill, each record's recoveries, transfers and
+    recovery latencies, each replica's replayed prefill tokens and
+    lifecycle) equals the same run's on the CPU, which
+    tests/test_torch_fault_recovery.py holds against the JAX engine."""
+    from repro_torch.chaos.triggers import FailWhen, FixedStepClock
+    from repro_torch.core.signals import NODE_ACTIVE
+    from repro_torch.engine import EngineServer
+
+    class Killed(FailWhen, FixedStepClock, EngineServer):
+        pass
+
+    def bookkeeping(srv, recs):
+        return dict(
+            records={r.cid: (r.recovered, r.n_kv_transfers,
+                             list(r.recovery_latency_s)) for r in recs},
+            nodes={i: (s.alive, s.lifecycle, s.replayed_prefill_tokens)
+                   for i, s in srv.states.items()},
+            n_recoveries=srv.n_recoveries, killed=srv.killed,
+            at_rejoin=srv.at_rejoin)
+
+    kill = dict(victim_node=1, min_turn=1,
+                rejoin_after_s=0.05 if rejoin else None)
+    _, _, want = _gpu_serve(cuda, "conserve")
+    srv, recs, got = _gpu_serve(cuda, "conserve", server_cls=Killed,
+                                server_kw=kill)
+    assert srv.killed is not None and srv.n_recoveries >= 1
+    assert srv.records[srv.killed[0]].recovered
+    assert got == want
+    if rejoin:
+        st = srv.states[1]
+        assert st.alive and st.lifecycle == NODE_ACTIVE
+        assert srv.at_rejoin["kv"] == srv.at_rejoin["slots"] == 0
+    cpu = _gpu_serve(torch.device("cpu"), "conserve", server_cls=Killed,
+                     server_kw=kill)
+    assert bookkeeping(srv, recs) == bookkeeping(*cpu[:2])

@@ -40,7 +40,8 @@ def test_port_sources_are_found():
     names = {p.name for p in FILES}
     assert {"replica.py", "server.py", "decode_attention.py",
             "prefill_attention.py", "wkv6.py", "rglru.py", "recurrent.py",
-            "recurrentgemma_9b.py", "chip_smoke.py"} <= names
+            "recurrentgemma_9b.py", "chip_smoke.py", "baselines.py",
+            "simulator.py", "gateway.py", "driver.py"} <= names
     assert len(FILES) > 25
 
 
@@ -54,6 +55,7 @@ def test_entry_points_import_without_jax_or_repro():
     code = ("import sys\n"
             "import repro_torch.engine, repro_torch.launch.serve\n"
             "import repro_torch.kernels.ops, repro_torch.traces\n"
+            "import repro_torch.cluster, repro_torch.serve, repro_torch.chaos\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
