@@ -8,7 +8,12 @@ Drives the port's three served paths — ConServe over `ReplicaEngine`,
 rwkv6-3b and recurrentgemma-9b at full width — then qwen3-0.6b under the
 paper's baselines, through failures and live through the gateway, and
 holds each hand-written CUDA kernel of those paths against its plain
-PyTorch version on the card.
+PyTorch version on the card. Every replica runs its decode chunks, turn-1
+prefills and appends through its programs' CUDA graphs (the default), so
+the launch counts of the served phases count replays (each replay adds
+what its capture recorded), and each served phase prints its compile_s
+(kernel builds and program captures, never in a dt), the programs it
+captured, their graph pools and peak memory beside TTFET p95 and TBT.
 Phases, each raising on failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
@@ -76,7 +81,22 @@ Phases, each raising on failure:
      (each token's rank and gap printed); (c) bf16, the trace live
      through the gateway with decoder 1 killed the same way — all complete,
      the gateway's counts add up, its `recovery` events equal the server's
-     recoveries.
+     recoveries;
+ 11. the replica's CUDA graphs against the same bodies run eagerly
+     (`cuda_graphs=False`), on one cache from one zeroed start, full width:
+     12 slots prefilled, a ragged chunk of up to 32 steps, a slot joining
+     and an append between chunks, a kill (every slot invalidated, the
+     cache kept) and a rejoin whose chunk is captured after it. In fp32
+     with TF32 off (11a qwen3-0.6b on phase 4's weights, 11c rwkv6-3b on
+     phase 6's, 11d recurrentgemma-9b on phase 8's) the tokens and the
+     caches must be byte-identical after every chunk, and each prints a
+     16-step chunk's wall and traced device time per step, eager against
+     graph, the launches per replay, each decode bucket's capture seconds,
+     the graph pool and peak memory; in bf16 (11b, phase 5's weights) it
+     prints the count of equal tokens. Phase 4 also runs qwen3-0.6b's
+     graphed turn-1 prefill and appends against the eager fast path (byte-
+     identical caches, gated) and `prefill_mode="reference"` (equal tokens,
+     gated; each layer's largest cache difference printed).
 
 Each model is freed before the next is loaded. The last four lines of
 standard output are the script's wall time, the card's name and power
@@ -88,6 +108,12 @@ exits non-zero before printing any result.
 
 runs phases 1-3 alone and ends with the card line and the kernels' JSON
 line (no ok line): the quick way to time the kernels of a tree.
+
+    python3 chip_smoke.py --rotation-sweep 4,8,16,32
+
+builds the kernels, then serves phase 5b's run once for each
+`rotation_min_chunk` given and prints each run's serving numbers (no ok
+line).
 """
 from __future__ import annotations
 
@@ -576,7 +602,7 @@ def phase_rglru(torch, cfg):
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32, cuda vs torch attention
 # --------------------------------------------------------------------------- #
-def phase_fp32_parity(torch, cfg, device, n_decode=8):
+def phase_fp32_parity(torch, cfg, device, card, n_decode=8):
     import numpy as np
     from repro_torch.engine import ReplicaEngine
     from repro_torch.kernels import ops
@@ -629,7 +655,10 @@ def phase_fp32_parity(torch, cfg, device, n_decode=8):
     log(f"  greedy tokens torch {streams['torch']}")
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("greedy tokens differ between attention impls")
-    del params, caches, cache
+    del caches, cache
+    phase_graphs(torch, cfg, params, card, "a")
+    phase_prefill_reference(torch, cfg, params)
+    del params
     torch.cuda.empty_cache()
 
 
@@ -680,12 +709,13 @@ def golden_summary(cfg, params, device):
 
 def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
                     max_ctx=1024, scheduler="conserve", server_cls=None,
-                    live=False):
+                    live=False, server_kw=None):
     """The launcher's engine deployment under `scheduler` (1 prefiller + 2
     decoders, or 3 mixed replicas under collocated) on its engine trace,
-    tokens recorded. `live` serves it through the gateway
-    (`serve_scenario_live`). Returns (summary, server, replicas, gateway or
-    None)."""
+    tokens recorded, each replica through its CUDA graphs (the default).
+    `live` serves it through the gateway (`serve_scenario_live`);
+    `server_kw` goes to the server. Returns (summary, server, replicas,
+    gateway or None)."""
     from repro_torch.core import make_scheduler
     from repro_torch.core.metrics import summarize
     from repro_torch.engine import EngineServer, ReplicaEngine
@@ -695,7 +725,8 @@ def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
             for i, role in enumerate(engine_roles(scheduler))]
     srv = (server_cls or EngineServer)(make_scheduler(scheduler), reps,
                                        record_tokens=True,
-                                       strict_accounting=True)
+                                       strict_accounting=True,
+                                       **(server_kw or {}))
     gw = None
     if live:
         from repro_torch.serve import serve_scenario_live
@@ -757,13 +788,19 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
         f"conversations, kv_transfers_per_conv "
         f"{s['kv_transfers_per_conv']}, remote turns {remote}, wall "
         f"{wall:.2f} s, launches {launches}")
+    progs = [p for r in reps for p in r.programs().values()]
     log(f"  [{card}] ttfet_p95 {s['ttfet_p95']:.4f} s, last_tbt_gmean "
         f"{s['last_tbt_gmean'] * 1e3:.3f} ms, last_tbt_p95 "
         f"{s['last_tbt_p95'] * 1e3:.3f} ms, prefill {pre_tok / pre_s:.1f} "
         f"tok/s ({pre_tok} tok), decode {dec_tok / dec_s:.1f} tok/s "
         f"({dec_tok} tok), peak device memory {peak:.3f} GiB, "
-        f"{per_transfer} (nbytes_of), kernel build charged to compile_s "
-        f"{sum(r.compile_s for r in reps):.3f} s")
+        f"{per_transfer} (nbytes_of)")
+    log(f"  [{card}] compile_s {sum(r.compile_s for r in reps):.3f} s "
+        f"(kernels and programs, out of every dt); programs captured "
+        f"{sum(p.graph is not None for p in progs)} of {len(progs)} "
+        f"({sum(k[0] == 'decode' for r in reps for k in r.programs())} "
+        f"decode), capture {sum(p.capture_s for p in progs):.3f} s; graph "
+        f"pools {sum(r.graph_pool_bytes() for r in reps) / 2**20:.1f} MiB")
     streams = {k: [int(t) for t in v] for k, v in srv.sampled_tokens.items()}
     run = dict(summary=s, srv=srv, gw=gw, streams=streams, remote=remote,
                launches=dict(launches))
@@ -775,6 +812,7 @@ def phase_serve(torch, cfg, device, card):
     log(f"phase 5: {cfg.name} full width {cfg.dtype}, EngineServer + "
         f"ConServe, strict accounting")
     params = build_model(cfg).init(0, device)
+    phase_graphs(torch, cfg, params, card, "b", gate=False)
     golden = json.loads(GOLDEN.read_text())
     got = golden_summary(cfg, params, device)
     if got != golden:
@@ -794,7 +832,7 @@ def phase_serve(torch, cfg, device, card):
 # --------------------------------------------------------------------------- #
 # phases 6-7: rwkv6-3b
 # --------------------------------------------------------------------------- #
-def phase_rwkv_fp32_parity(torch, cfg, device, n_decode=8):
+def phase_rwkv_fp32_parity(torch, cfg, device, card, n_decode=8):
     """Full width in fp32: the prefill's WKV in K3 ("cuda") and in
     `wkv6_chunked` ("torch"), then decode steps from each one's state."""
     import numpy as np
@@ -878,7 +916,9 @@ def phase_rwkv_fp32_parity(torch, cfg, device, n_decode=8):
     log(f"  greedy tokens torch {streams['torch']}")
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("rwkv6 greedy tokens differ between impls")
-    del params, caches, eng
+    del caches, eng
+    phase_graphs(torch, cfg, params, card, "c")
+    del params
     torch.cuda.empty_cache()
 
 
@@ -899,7 +939,7 @@ def phase_rwkv_serve(torch, cfg, device, card):
 # --------------------------------------------------------------------------- #
 # phases 8-9: recurrentgemma-9b
 # --------------------------------------------------------------------------- #
-def phase_rg_fp32_parity(torch, cfg, device, n_decode=8):
+def phase_rg_fp32_parity(torch, cfg, device, card, n_decode=8):
     """Full width in fp32: the prefill's RG-LRU recurrence in K4 ("cuda")
     and in the log-depth scan ("torch"), then decode steps from each one's
     caches (folded by merge_decode_cache), then greedy tokens through a
@@ -964,6 +1004,7 @@ def phase_rg_fp32_parity(torch, cfg, device, n_decode=8):
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("recurrentgemma greedy tokens differ between "
                              "impls")
+    phase_graphs(torch, cfg, params, card, "d")
     del params
     torch.cuda.empty_cache()
 
@@ -982,6 +1023,189 @@ def phase_rg_serve(torch, cfg, device, card):
     del params
     torch.cuda.empty_cache()
     return launches
+
+
+# --------------------------------------------------------------------------- #
+# phase 11: the replica's CUDA graphs against the same bodies run eagerly
+# --------------------------------------------------------------------------- #
+GRAPH_SLOTS = 16
+
+
+def cache_copy(eng):
+    from repro_torch.engine.kvcache import leaves
+    return [t.clone() for _, t in leaves(eng.kv.caches)]
+
+
+def graph_script(eng, seed):
+    """The chunks a served decoder meets, at full width: 12 slots
+    prefilled, a ragged chunk of up to 32 steps with two live slots idle, a
+    slot joining and an append between chunks (the split-chunk contract), a
+    chunk of 16, a kill (every slot invalidated and the cache kept, as
+    `EngineServer` fails a replica), a rejoin and a chunk of 4. Yields
+    (label, sampled tokens) after each chunk."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    n, V = eng.kv.n_slots, eng.cfg.vocab_size
+    nt = np.zeros(n, np.int32)
+    em = np.zeros(n, bool)
+
+    def admit(length):
+        s = eng.kv.acquire()
+        nt[s] = int(eng.prefill_conversation(s, rs.randint(0, V, length))[0])
+        em[s] = True
+
+    for length in rs.randint(40, 400, 12):
+        admit(int(length))
+    em[[3, 7]] = False
+    rem = np.where(em, rs.randint(1, 33, n), 0).astype(np.int32)
+    rem[0] = 32
+    seq, _ = eng.decode_steps(nt, em, rem)
+    yield "ragged chunk (remaining 1-32, 2 slots idle)", seq
+    live = np.flatnonzero(em)
+    nt[live] = seq[rem[live] - 1, live]
+    admit(150)
+    nt[0] = int(eng.append_prefill(0, rs.randint(0, V, 24))[0])
+    seq, _ = eng.decode_steps(nt, em, 16)
+    yield "a slot joined and an append, chunk of 16", seq
+    eng.kv.invalidate_all()
+    nt[:], em[:] = 0, False
+    for length in (77, 260):
+        admit(length)
+    seq, _ = eng.decode_steps(nt, em, 4)
+    yield "killed and rejoined, chunk of 4", seq
+
+
+def phase_graphs(torch, cfg, params, card, tag, gate=True):
+    """On the caller's weights: `graph_script` through the CUDA graphs and
+    through the same bodies run eagerly (`cuda_graphs=False`), on the same
+    cache from the same zeroed start, the buckets of the last chunk
+    captured after the kill. `gate` (fp32 with TF32 off): the tokens equal
+    and the caches byte-identical after every chunk, then one 16-step chunk
+    over 16 slots at ctx ~300, eager and graph — wall and device time per
+    step, kernel launches per replay, the capture seconds of each decode
+    bucket, the graph pool, peak memory. Without `gate` (bf16) the count of
+    equal tokens and the largest cache difference are printed."""
+    import gc
+
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.engine.kvcache import leaves
+    from repro_torch.launch.profile import traced
+    log(f"phase 11{tag}: {cfg.name} full width {cfg.dtype}, the CUDA graphs "
+        f"against the same bodies run eagerly, on one cache")
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ReplicaEngine(cfg, params, n_slots=GRAPH_SLOTS, max_ctx=1024,
+                        attention_impl="cuda")
+    want = []
+    for graphs in (False, True):
+        for _, t in leaves(eng.kv.caches):
+            t.zero_()
+        eng.kv.invalidate_all()
+        eng.cuda_graphs = graphs
+        for i, (label, seq) in enumerate(graph_script(eng, seed=11)):
+            if not graphs:
+                want.append((seq, cache_copy(eng)))
+                continue
+            w_seq, w_caches = want[i]
+            n_eq = int((seq == w_seq).sum())
+            diff = max(max_err(a, b) for (_, a), b in
+                       zip(leaves(eng.kv.caches), w_caches))
+            log(f"  {label}: {n_eq} of {seq.size} tokens equal, cache "
+                f"max|diff| {diff:.3e}")
+            if gate and not (n_eq == seq.size and diff == 0.0):
+                raise AssertionError(f"{cfg.name}: graph and eager differ "
+                                     f"after: {label}")
+    del want
+    if not gate:
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        return
+    rs = np.random.RandomState(12)
+    eng.kv.invalidate_all()
+    nt = np.zeros(GRAPH_SLOTS, np.int32)
+    for _ in range(GRAPH_SLOTS):
+        s = eng.kv.acquire()
+        nt[s] = int(eng.prefill_conversation(
+            s, rs.randint(0, cfg.vocab_size, 300))[0])
+    em = np.ones(GRAPH_SLOTS, bool)
+    step = {}
+    for graphs, label in ((False, "eager"), (True, "graph")):
+        eng.cuda_graphs = graphs
+        eng.decode_steps(nt, em, 16)  # builds (and captures) the bucket
+        _, dt = eng.decode_steps(nt, em, 16)
+        (_, dt_t), rows = traced(lambda: eng.decode_steps(nt, em, 16))
+        busy = sum(r[1] for r in rows) / 1e3
+        n_k = sum(r[2] for r in rows)
+        step[label] = dt / 16
+        log(f"  [{card}] decode step, {label}: wall {dt * 1e3 / 16:.3f} ms, "
+            f"device busy {busy / 16:.3f} ms ({100 * busy / (dt_t * 1e3):.1f}"
+            f"% of the traced chunk's wall {dt_t * 1e3 / 16:.3f} ms a step), "
+            f"{n_k} kernel launches in the chunk ({n_k / 16:.1f} a step)")
+    caps = {k: round(p.capture_s, 3) for k, p in sorted(eng._fused.items())
+            if p.graph is not None}
+    free, total = torch.cuda.mem_get_info()
+    outside = (total - free - torch.cuda.memory_reserved()) / 2**30
+    log(f"  [{card}] graph {step['eager'] / step['graph']:.2f}x faster a "
+        f"step; decode buckets captured (n_steps, ctx): seconds {caps}; "
+        f"programs {len(eng.programs())}, compile_s {eng.compile_s:.3f} s, "
+        f"graph pool {eng.graph_pool_bytes() / 2**20:.1f} MiB, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, device memory "
+        f"outside the caching allocator {outside:.3f} GiB")
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase_prefill_reference(torch, cfg, params):
+    """qwen3-0.6b in fp32, TF32 off: a turn-1 prefill and two appends (the
+    prefix crossing a ctx bucket) through the graphed programs, through the
+    same bodies eagerly, and through `prefill_mode="reference"`, at
+    max_ctx 256 (the CPU test's) and 1024: equal tokens and byte-identical
+    caches, gated. The reference's append attends over the whole max_ctx
+    buffer, the fast path's over the prefix's ctx bucket; each layer's
+    largest difference is printed, and the first differing layer."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.engine.kvcache import leaves
+    for max_ctx, lengths in ((256, (45, 31, 15)), (1024, (300, 120, 40))):
+        toks, caches = {}, {}
+        for mode, kw in (("graph", {}), ("eager", {"cuda_graphs": False}),
+                         ("reference", {"prefill_mode": "reference"})):
+            eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=max_ctx,
+                                attention_impl="cuda", **kw)
+            rs = np.random.RandomState(5)
+            slot = eng.kv.acquire()
+            got = [eng.prefill_conversation(
+                slot, rs.randint(0, cfg.vocab_size, lengths[0]))[0]]
+            for n in lengths[1:]:
+                got.append(eng.append_prefill(
+                    slot, rs.randint(0, cfg.vocab_size, n))[0])
+            toks[mode] = [int(t) for t in got]
+            caches[mode] = {"/".join(p): t.clone()
+                            for p, t in leaves(eng.kv.caches)}
+            del eng
+        same_tok = toks["graph"] == toks["eager"] == toks["reference"]
+        same = all(torch.equal(caches["graph"][k], caches["eager"][k])
+                   for k in caches["graph"])
+        per_layer = {k: [max_err(a, b) for a, b in
+                         zip(caches["graph"][k], caches["reference"][k])]
+                     for k in caches["graph"]}
+        first = {k: next((i for i, e in enumerate(v) if e), None)
+                 for k, v in per_layer.items()}
+        log(f"  prefill + 2 appends, max_ctx {max_ctx}: tokens equal "
+            f"{same_tok} {toks['graph']}; graphed caches byte-identical to "
+            f"eager {same}; against the reference path, max|diff| by layer "
+            + "; ".join(f"{k} {max(v):.3e} (first differing layer "
+                        f"{first[k]})" for k, v in per_layer.items()))
+        if not (same_tok and same and all(
+                max(v) == 0.0 for v in per_layer.values())):
+            raise AssertionError("graphed prefill and appends differ from "
+                                 "the eager fast path or the reference "
+                                 "path")
+        del caches
 
 
 # --------------------------------------------------------------------------- #
@@ -1253,6 +1477,23 @@ def phase_compare(torch, cfg, device, card, conserve):
     return launches
 
 
+def rotation_sweep(torch, cfg, device, card, values):
+    """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
+    the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
+    refill cut may dispatch (`EngineServer`; the default 16 was tuned to
+    eager dispatch on a CPU). Prints each run's serving numbers."""
+    from repro_torch.models import build_model
+    log(f"rotation sweep: {cfg.name} full width {cfg.dtype}, phase 5b's "
+        f"trace, rotation_min_chunk in {values}")
+    params = build_model(cfg).init(0, device)
+    for v in values:
+        serve_and_count(torch, cfg, params, card, PATH_KERNELS,
+                        f"rotation_min_chunk {v}: ",
+                        server_kw={"rotation_min_chunk": v})
+    del params
+    torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -1260,6 +1501,10 @@ def main(argv=None) -> int:
                     help="run phases 1-3 alone (build, check and time the "
                     "kernels) and print their JSON line, without the "
                     "served paths and without the ok line")
+    ap.add_argument("--rotation-sweep", metavar="N,N,...",
+                    help="after phases 1-2, serve phase 5b's trace once for "
+                    "each rotation_min_chunk given, print each run's "
+                    "serving numbers, and stop (no ok line)")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
     import torch
@@ -1302,6 +1547,13 @@ def main(argv=None) -> int:
     cfg = get_config("qwen3-0.6b")
     rcfg = get_config("rwkv6-3b")
     gcfg = get_config("recurrentgemma-9b")
+    if args.rotation_sweep:
+        rotation_sweep(torch, cfg, device, card,
+                       [int(v) for v in args.rotation_sweep.split(",")])
+        log(f"chip_smoke --rotation-sweep wall "
+            f"{time.perf_counter() - t_start:.1f} s")
+        print(card)
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -1311,11 +1563,11 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"kernels": recs}))
         return 0
-    phase_fp32_parity(torch, cfg, device)
+    phase_fp32_parity(torch, cfg, device, card)
     launches, conserve_run = phase_serve(torch, cfg, device, card)
-    phase_rwkv_fp32_parity(torch, rcfg, device)
+    phase_rwkv_fp32_parity(torch, rcfg, device, card)
     launches.update(phase_rwkv_serve(torch, rcfg, device, card))
-    phase_rg_fp32_parity(torch, gcfg, device)
+    phase_rg_fp32_parity(torch, gcfg, device, card)
     launches.update(phase_rg_serve(torch, gcfg, device, card))
     t10 = time.perf_counter()
     compared = phase_compare(torch, cfg, device, card, conserve_run)

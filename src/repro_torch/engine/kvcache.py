@@ -131,6 +131,41 @@ def slice_slot_prefix(caches, slot: int, ctx: int):
     return map_leaves(take, caches)
 
 
+def gather_slot_prefix(caches, slot: torch.Tensor, ctx: int):
+    """`slice_slot_prefix` with the slot as a device tensor ((1,) int): the
+    same rows, gathered by index into new tensors — a copy, as the
+    reference's `dynamic_slice` is one, so a CUDA graph can read any slot
+    (`engine.programs`). Later writes to the cache do not show in it."""
+    slot = slot.long()
+
+    def take(path, leaf):
+        ax = 1 if path[0] == "groups" else 0
+        if growing(path):
+            leaf = leaf.narrow(ax + 1, 0, min(ctx, leaf.shape[ax + 1]))
+        return leaf.index_select(ax, slot)
+    return map_leaves(take, caches)
+
+
+@torch.no_grad()
+def fold_prefill_at(caches, new_caches, slot: torch.Tensor,
+                    offset: torch.Tensor) -> None:
+    """`fold_prefill` with the slot and the offset as device tensors ((1,)
+    int): the same bytes written, by `index_copy_` / `index_put_` on the
+    slot axis, so a CUDA graph can write any slot at any offset and the host
+    reads nothing. It cannot refuse a region that runs off the buffer
+    without a host read, so the caller checks that before (the replica's
+    `_check_prefill_room` and `_prefill_pad`)."""
+    slot = slot.long()
+    for path, leaf in leaves(caches):
+        leaf = grouped(path, leaf)
+        new = grouped(path, leaf_at(new_caches, path)).to(leaf.dtype)
+        if not growing(path):
+            leaf.index_copy_(1, slot, new)
+            continue
+        rows = offset.long() + torch.arange(new.shape[2], device=leaf.device)
+        leaf[:, slot[:, None], rows[None, :]] = new
+
+
 @torch.no_grad()
 def fold_prefill(caches, new_caches, slot: int, offset: int) -> None:
     """Write a (batch=1) prefill result into slot `slot`, in place: growing

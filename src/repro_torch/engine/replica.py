@@ -2,25 +2,36 @@
 with bucketed prefill lengths and greedy sampling on the device.
 
 The surface is the JAX package's `ReplicaEngine`, the one `EngineServer`
-touches. PyTorch runs eagerly, so where the reference compiles one donated
-program per bucket the port runs the same steps as torch ops that write the
-slot cache IN PLACE (see `kvcache`):
+touches. Where the reference compiles one donated program per bucket, the
+port builds one `programs.Program` per bucket key — static device buffers,
+a body that writes the slot cache IN PLACE (see `kvcache`) and, on a CUDA
+replica, the CUDA graph of that body, replayed on every later call:
 
-* Turn-1 prefill (`prefill_conversation`) pads the tokens to a length
-  bucket (or to the exact length when the bucket would not fit the slot),
-  runs the forward, gathers the logits at the last live position, takes the
-  greedy argmax on the device and folds the new K/V into the slot.
-  A declared shared preamble always splits the prefill at its boundary and
-  may be served from the node's prefix pool.
-* Append-prefill (`append_prefill`) reads the slot's own prefix as a view
-  trimmed to its ctx bucket and masks the padding with kv_lens.
-* The decode chunk (`decode_steps`) is a Python loop over a RAGGED chunk:
-  slot s is live only while step < remaining[s]. The sampled token is fed
-  back on the device and the host syncs once per chunk.
+* The decode chunk (`decode_steps`), keyed (n_steps, ctx_limit) as the
+  reference's `_get_fused`: a RAGGED chunk, slot s live only while step <
+  remaining[s]. The sampled token is fed back on the device and the host
+  syncs once per chunk. The graph runs the bucket's n_steps, as the
+  reference's scan does; an eager run stops after max(remaining) — frozen
+  lanes change nothing, so the two leave the same tokens and caches.
+* Turn-1 prefill (`prefill_conversation`), keyed by the length bucket
+  pad_to (the reference's `_get_prefill`): the tokens padded to the bucket,
+  the logits gathered at the last live position, the greedy argmax on the
+  device and the new K/V folded into the slot by device index.
+* Append-prefill (`append_prefill`), keyed (pad_to, ctx) (the reference's
+  `_get_append`): the slot's own prefix gathered to its ctx bucket by
+  device index, the padding masked with kv_lens.
 
-A model with recurrent layers (RWKV6, RG-LRU) never pads a prefill or an
-append to a bucket: every position it consumes moves its state, so padding
-would corrupt it. It runs at the exact length in both prefill modes.
+Three cases run the same bodies eagerly, never through a program:
+F2's exact-length prefill (the bucket would not fit the slot; the
+reference compiles a one-off program there, and a graph used once costs
+more than it saves); every prefill of a model with recurrent layers (RWKV6,
+RG-LRU), which never pads — every position it consumes moves its state —
+as the reference's `_prefill_jittable` keeps them eager; and the prefix
+pool's hit (`_prefill_from_pool`). `prefill_mode="reference"` and
+`decode_step_all_reference` replay the reference paths (full-buffer prefix
+view, host-side sampling, one step per call) as the parity oracles.
+Programs are built lazily, or ahead of time by `warmup_decode`,
+`warmup_prefill` and `warmup=True`.
 
 With `attention_impl="cuda"` (the default) fresh global prefill attention
 runs in the hand-written kernel K2, global decode attention in K1, the RWKV6
@@ -29,18 +40,17 @@ CPU replica uses the kernels' plain versions (the tensors lie on the CPU).
 Local (sliding-window) attention is torch ops under both impls, as in the
 reference. "torch" keeps the online-softmax paths of `models.attention`,
 the chunked `wkv6_chunked` and the log-depth `rglru_scan_logdepth`.
-`prefill_mode="reference"` and `decode_step_all_reference` replay the
-reference paths (full-buffer prefix view, host-side sampling, one step per
-call) as the parity oracles.
 
 Timing: every measured dt ends in `torch.cuda.synchronize()` on a CUDA
-replica. Building the CUDA kernels is charged to `compile_s` of the replica
-that triggered it, never to a dt.
+replica. Building the CUDA kernels and building a program (its warm-up pass
+and its capture) are charged to `compile_s` of the replica that triggered
+them, never to a dt.
 """
 from __future__ import annotations
 
+import functools
 import time
-from typing import Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -50,8 +60,10 @@ from repro_torch.kernels import _build
 from repro_torch.models import build_model
 from repro_torch.models.config import RGLRU, RWKV6, ModelConfig
 
-from .kvcache import (SlotKVCache, fold_decode_step, fold_prefill, grouped,
-                      growing, map_leaves, prefix_hash, slice_slot_prefix)
+from .kvcache import (SlotKVCache, fold_decode_step, fold_prefill,
+                      fold_prefill_at, gather_slot_prefix, grouped, growing,
+                      leaves, map_leaves, prefix_hash, slice_slot_prefix)
+from .programs import Program, pool_bytes, side_stream, uncounted
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -96,10 +108,14 @@ def ctx_bucket(n: int, max_ctx: int) -> int:
 class ReplicaEngine:
     def __init__(self, cfg: ModelConfig, params, *, n_slots: int = 8,
                  max_ctx: int = 2048, replica_id: int = 0, role: str = "decode",
-                 attention_impl: str = "cuda", prefill_mode: str = "jit",
-                 prefix_pool_tokens: int = 0):
+                 warmup: bool = False, attention_impl: str = "cuda",
+                 prefill_mode: str = "jit", prefix_pool_tokens: int = 0,
+                 cuda_graphs: bool = True):
         """params: the `LM` module (from `Model.init` or
         `convert.params_from_numpy`); the replica runs on its device.
+        warmup: build every decode program this replica can reach
+        (`warmup_decode`) and, for a padding family in "jit" mode, every
+        prefill and append program (`warmup_prefill`), before serving.
         attention_impl: "cuda" (default) sends fresh global prefill
         attention through K2, global decode attention through K1, the RWKV6
         WKV recurrence through K3 and the RG-LRU recurrence through K4
@@ -107,14 +123,19 @@ class ReplicaEngine:
         A model with a local-attention layer needs max_ctx <= its window
         (`SlotKVCache` refuses a longer one).
         prefill_mode: "jit" (the name the server uses for the fast path)
-        reads an append prefix as a view trimmed to its ctx bucket and
-        samples on the device; "reference" replays the eager oracle
-        (full-buffer prefix view, host-side sampling). Both give the same
-        tokens and caches (byte-identical in the CPU tests).
+        runs a bucketed (append-)prefill through its program — the prefix
+        gathered to its ctx bucket, the sampling on the device; "reference"
+        replays the eager oracle (full-buffer prefix view, host-side
+        sampling). Both give the same tokens and caches (byte-identical in
+        the CPU tests).
         prefix_pool_tokens: live-token budget for the node-level prefix KV
         pool (0 = no pool). A turn-1 prefill with `prefix_len` > 0 ALWAYS
         splits at that boundary; the pool only changes where the prefix
-        rows come from."""
+        rows come from.
+        cuda_graphs: on a CUDA replica, capture each program's body in a
+        CUDA graph and replay it (the default); False runs the same bodies
+        eagerly on the same buffers — the parity oracle and the baseline of
+        the graphs' gain. A CPU replica never captures."""
         if prefill_mode not in ("jit", "reference"):
             raise ValueError(f"prefill_mode {prefill_mode!r} not in "
                              "('jit', 'reference')")
@@ -131,12 +152,13 @@ class ReplicaEngine:
         self.role = role
         self.attention_impl = attention_impl
         # recurrent prefill consumes every position: padding would corrupt
-        # the state, so such a model prefills at the exact length
+        # the state, so such a model prefills at the exact length, eagerly
         self.exact_prefill = any(k in (RWKV6, RGLRU)
                                  for k in cfg.block_pattern)
         self.prefill_mode = prefill_mode
+        self.cuda_graphs = cuda_graphs
         self.compute_s = 0.0  # accumulated measured compute time
-        self.compile_s = 0.0  # kernel build time (OUT of dt)
+        self.compile_s = 0.0  # kernel and program build time (OUT of dt)
         self.decode_s = 0.0   # decode-only share of compute_s
         self.prefill_s = 0.0  # prefill-only share of compute_s
         self.n_prefill_tokens = 0
@@ -144,6 +166,20 @@ class ReplicaEngine:
         self.prefix_pool = (PrefixKVPool(prefix_pool_tokens)
                             if prefix_pool_tokens > 0 else None)
         self.n_pooled_prefix_tokens = 0
+        # the programs, keyed as the reference keys its compiled ones:
+        # decode (n_steps, ctx_limit), turn-1 pad_to, append (pad_to, ctx).
+        # Per replica: a graph binds this replica's cache and weights, so
+        # unlike the reference's process-wide prefill cache none is shared
+        self._fused: Dict[Tuple[int, int], Program] = {}
+        self._prefill: Dict[int, Program] = {}
+        self._append: Dict[Tuple[int, int], Program] = {}
+        self._pool = None      # one graph memory pool for all of them
+        self._stream = None    # and one capture stream
+        self._weights = None   # (name, Parameter), for the address guard
+        if warmup:
+            self.warmup_decode()
+            if not self.exact_prefill and prefill_mode == "jit":
+                self.warmup_prefill()
 
     # ----- device helpers ---------------------------------------------------------
     def _kernels_ready(self):
@@ -158,6 +194,64 @@ class ReplicaEngine:
 
     def _tokens(self, toks: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(np.asarray(toks, np.int32), device=self.device)
+
+    # ----- programs -------------------------------------------------------------
+    @property
+    def _graphs(self) -> bool:
+        return self.cuda_graphs and self.device.type == "cuda"
+
+    def _bound(self):
+        """(name, tensor) of every weight and cache leaf a program binds.
+        The weights' list is walked once (a moved weight keeps its
+        Parameter); the cache tree at every call (a leaf may be rebound)."""
+        if self._weights is None:
+            self._weights = [(f"weight {n}", p)
+                             for n, p in self.params.named_parameters()]
+        return self._weights + [(f"cache {'/'.join(path)}", t)
+                                for path, t in leaves(self.kv.caches)]
+
+    def _program(self, table: Dict, key, make: Callable[[], Program]
+                 ) -> Program:
+        """Fetch (or build) the program for one bucket key and, on a CUDA
+        replica with graphs, capture it. Building and capturing go to
+        `self.compile_s`, never into a measured dt."""
+        prog = table.get(key)
+        if prog is not None and (prog.graph is not None or not self._graphs):
+            return prog
+        self._kernels_ready()
+        t0 = time.perf_counter()
+        if prog is None:
+            prog = table[key] = make()
+        if self._graphs:
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+                self._stream = torch.cuda.Stream(self.device)
+            prog.capture(self._bound(), self._pool, self._stream)
+        self.compile_s += time.perf_counter() - t0
+        return prog
+
+    def _run(self, prog: Program, host: np.ndarray,
+             steps: Optional[int] = None) -> torch.Tensor:
+        """One run of a program on `host` inputs: one copy in, then the
+        graph's replay or the eager body (`steps` calls of it, by default
+        the program's). Returns its output buffer; nothing is read back."""
+        prog.load(host)
+        if self._graphs:
+            prog.replay(self._bound())
+        else:
+            prog.run_eager(steps)
+        return prog.out
+
+    def programs(self) -> Dict[Tuple, Program]:
+        """Every program built so far, keyed ("decode", n_steps, ctx),
+        ("prefill", pad_to) or ("append", pad_to, ctx)."""
+        return {**{("decode",) + k: p for k, p in self._fused.items()},
+                **{("prefill", k): p for k, p in self._prefill.items()},
+                **{("append",) + k: p for k, p in self._append.items()}}
+
+    def graph_pool_bytes(self) -> int:
+        """Device bytes held by this replica's graph memory pool."""
+        return 0 if self._pool is None else pool_bytes(self._pool)
 
     # ----- sampling -------------------------------------------------------------
     def sample(self, logits) -> np.ndarray:
@@ -204,10 +298,127 @@ class ReplicaEngine:
         self.n_prefill_tokens += n_tokens
         return dt
 
+    @staticmethod
+    def _prefill_host(slot: int, tokens, pad_to: int, prev: int
+                      ) -> np.ndarray:
+        """A prefill's inputs as one host vector: [slot, true_len, prev,
+        the tokens right-padded with 0 to pad_to]."""
+        host = np.zeros(3 + pad_to, np.int32)
+        host[:3] = slot, len(tokens), prev
+        host[3:3 + len(tokens)] = tokens
+        return host
+
+    @torch.no_grad()
+    def _prefill_body(self, ins: torch.Tensor, tok: torch.Tensor,
+                      ctx: Optional[int]) -> None:
+        """A turn-1 prefill (ctx None) or an append against the slot's first
+        ctx rows, on device inputs ins = [slot, true_len, prev, tokens]:
+        the new tokens' K/V (or states) folded into the slot at prev by
+        device index, and the greedy token at true_len - 1 written to tok.
+        Nothing is read back to the host."""
+        slot, true_len, prev = ins[0:1], ins[1:2], ins[2:3]
+        kw = {}
+        if ctx is not None:
+            kw = dict(caches=gather_slot_prefix(self.kv.caches, slot, ctx),
+                      start_pos=prev, kv_lens=prev, prefix_start=0)
+        logits, new = self.model.prefill(
+            self.params, ins[3:][None], logits_at=true_len - 1,
+            attention_impl=self.attention_impl, **kw)
+        fold_prefill_at(self.kv.caches, new, slot, prev)
+        tok.copy_(self._argmax(logits))
+
+    def _make_prefill(self, pad_to: int, ctx: Optional[int]) -> Program:
+        """Buffers of a (append-)prefill program, and its warm-up pass: a
+        full prefill into slot 0, whose cache is saved before and put back
+        after, so the pass leaves every byte as it found it."""
+        prog = Program(("prefill", pad_to) if ctx is None
+                       else ("append", pad_to, ctx), 3 + pad_to,
+                       torch.zeros(1, dtype=torch.int32, device=self.device),
+                       functools.partial(self._prefill_body, ctx=ctx))
+        zero = torch.zeros(1, dtype=torch.int32, device=self.device)
+        with uncounted(), side_stream(self.device):
+            saved = gather_slot_prefix(self.kv.caches, zero, self.kv.max_ctx)
+            prog.load(self._prefill_host(0, np.zeros(pad_to, np.int32),
+                                         pad_to, 0))
+            prog.run_eager()
+            fold_prefill_at(self.kv.caches, saved, zero, zero)  # slot 0, row 0
+        return prog
+
+    def _get_prefill(self, pad_to: int) -> Program:
+        """Fetch (or build and capture) the turn-1 program of one length
+        bucket (the reference's `_get_prefill`)."""
+        return self._program(self._prefill, pad_to,
+                             lambda: self._make_prefill(pad_to, None))
+
+    def _get_append(self, pad_to: int, ctx: int) -> Program:
+        """Fetch (or build and capture) the append program of one (length
+        bucket, prefix ctx bucket) (the reference's `_get_append`)."""
+        return self._program(self._append, (pad_to, ctx),
+                             lambda: self._make_prefill(pad_to, ctx))
+
+    def _prefill_program(self, true_len: int, pad_to: int,
+                         ctx: Optional[int]) -> Optional[Program]:
+        """The program a (append-)prefill runs through, or None where it
+        runs eagerly: a recurrent model, or F2's exact length (the bucket
+        would not fit the slot)."""
+        if self.exact_prefill or pad_to != bucket_len(true_len):
+            return None
+        return (self._get_prefill(pad_to) if ctx is None
+                else self._get_append(pad_to, ctx))
+
+    def _run_prefill(self, prog: Optional[Program], host: np.ndarray,
+                     ctx: Optional[int]) -> int:
+        """The token of one (append-)prefill: through its program, or the
+        same body eagerly. The read of the token is the one host sync."""
+        if prog is not None:
+            return int(self._run(prog, host))
+        tok = torch.zeros(1, dtype=torch.int32, device=self.device)
+        self._prefill_body(self._tokens(host), tok, ctx)
+        return int(tok)
+
+    def warmup_prefill(self, lengths=None, ctx_limits=None) -> float:
+        """Build the turn-1 and append programs so a cold replica never
+        charges a build to its first conversations' TTFT. `lengths`
+        defaults to every PREFILL_BUCKET that fits max_ctx; turn-1 programs
+        are built per length, append programs per reachable (length, ctx)
+        pair, `ctx_limits` defaulting to every power-of-two ctx bucket a
+        prefix could occupy (the reference's rule). Returns the seconds
+        spent (also accumulated in `self.compile_s`); 0.0 for a recurrent
+        model, whose prefills run eagerly."""
+        if self.exact_prefill:
+            return 0.0
+        if lengths is None:
+            lengths = [b for b in PREFILL_BUCKETS if b <= self.kv.max_ctx]
+        if ctx_limits is None:
+            ctx_limits = self._ctx_buckets()
+        before = self.compile_s
+        for L in dict.fromkeys(bucket_len(int(x)) for x in lengths):
+            if L > self.kv.max_ctx:
+                continue  # such a prefill pads to its exact length, eagerly
+            self._get_prefill(L)
+            for C in dict.fromkeys(ctx_bucket(int(c), self.kv.max_ctx)
+                                   for c in ctx_limits):
+                # skip (L, C) pairs no live slot could ever reach: the
+                # smallest prefix length in ctx bucket C plus the append
+                # must still fit the slot
+                min_prev = 0 if C <= CTX_BUCKET_MIN else C // 2 + 1
+                if min_prev + L <= self.kv.max_ctx:
+                    self._get_append(L, C)
+        return self.compile_s - before
+
+    def _ctx_buckets(self):
+        out = []
+        b = CTX_BUCKET_MIN
+        while b < self.kv.max_ctx:
+            out.append(b)
+            b *= 2
+        return out + [self.kv.max_ctx]
+
     def prefill_conversation(self, slot: int, tokens: np.ndarray,
                              frontend_embeds=None, prefix_len: int = 0
                              ) -> Tuple[np.int32, float]:
-        """Turn-1 prefill into `slot`. Returns (next_token, measured_s).
+        """Turn-1 prefill into `slot`. Returns (next_token, measured_s); a
+        program's build is charged to `self.compile_s`, never to dt.
 
         `prefix_len` > 0 declares tokens[:prefix_len] a SHARED PREAMBLE and
         ALWAYS splits the prefill at that boundary — turn-1 class on the
@@ -230,12 +441,10 @@ class ReplicaEngine:
         if self.prefill_mode == "reference":
             return self._prefill_reference(slot, tokens)
         pad_to = self._prefill_pad(true_len, self.kv.max_ctx)
+        prog = self._prefill_program(true_len, pad_to, None)  # OFF the clock
+        host = self._prefill_host(slot, tokens, pad_to, 0)
         t0 = time.perf_counter()
-        logits, new = self.model.prefill(
-            self.params, self._padded(tokens, pad_to),
-            logits_at=true_len - 1, attention_impl=self.attention_impl)
-        fold_prefill(self.kv.caches, new, slot, 0)
-        tok = int(self._argmax(logits[0]))
+        tok = self._run_prefill(prog, host, None)
         self.kv.lengths[slot] = true_len
         dt = self._account_prefill(t0, true_len)
         return np.int32(tok), dt
@@ -287,8 +496,10 @@ class ReplicaEngine:
     def _prefill_from_pool(self, slot: int, key: str, delta: np.ndarray,
                            prefix_len: int) -> Tuple[np.int32, float]:
         """Pool-hit turn-1: fold the pooled preamble rows into the slot and
-        run the delta forward against them — zero preamble FLOPs. The entry
-        is pinned across the read; `get` records the observed hit."""
+        run the delta forward against them — zero preamble FLOPs — through
+        the append body, eagerly (the reference's `_get_shared` program is
+        not ported). The entry is pinned across the read; `get` records the
+        observed hit."""
         pool = self.prefix_pool
         e = pool.get(key)
         pool.pin(key)
@@ -302,7 +513,11 @@ class ReplicaEngine:
                 tok, dt = self._append_reference(slot, delta)
                 self.n_pooled_prefix_tokens += prefix_len
                 return tok, fold_dt + dt
-            tok = self._append_fast(slot, delta, prefix_len, e.ctx)
+            pad_to = self._prefill_pad(len(delta), self.kv.max_ctx - prefix_len)
+            tok = self._run_prefill(
+                None, self._prefill_host(slot, delta, pad_to, prefix_len),
+                e.ctx)
+            self.kv.lengths[slot] = prefix_len + len(delta)
             dt = self._account_prefill(t0, len(delta))
             self.n_pooled_prefix_tokens += prefix_len
             return np.int32(tok), dt
@@ -325,29 +540,11 @@ class ReplicaEngine:
         dt = self._account_prefill(t0, true_len)
         return tok, dt
 
-    def _append_fast(self, slot: int, tokens: np.ndarray, prev: int,
-                     ctx: int) -> int:
-        """The append forward of the fast path: prefix = the slot's own rows
-        trimmed to `ctx` (a view), padding masked via kv_lens, new K/V
-        written in place at `prev`, argmax on the device."""
-        true_len = len(tokens)
-        pad_to = self._prefill_pad(true_len, self.kv.max_ctx - prev)
-        prefix = slice_slot_prefix(self.kv.caches, slot, ctx)
-        lens = torch.tensor([prev], dtype=torch.int32, device=self.device)
-        logits, new = self.model.prefill(
-            self.params, self._padded(tokens, pad_to), caches=prefix,
-            start_pos=prev, kv_lens=lens, prefix_start=0,
-            logits_at=true_len - 1, attention_impl=self.attention_impl)
-        fold_prefill(self.kv.caches, new, slot, prev)
-        tok = int(self._argmax(logits[0]))
-        self.kv.lengths[slot] = prev + true_len
-        return tok
-
     def append_prefill(self, slot: int, tokens: np.ndarray
                        ) -> Tuple[np.int32, float]:
         """Turn-2+ prefill against the slot's cached prefix (local, prefix
         cache hit — the ConServe fast path). Returns (next_token,
-        measured_s)."""
+        measured_s); a program's build is charged to `self.compile_s`."""
         true_len = len(tokens)
         self._check_prefill_room(slot, true_len)
         self._kernels_ready()
@@ -355,8 +552,12 @@ class ReplicaEngine:
             return self._append_reference(slot, tokens)
         prev = int(self.kv.lengths[slot])
         ctx = ctx_bucket(max(prev, 1), self.kv.max_ctx)
+        pad_to = self._prefill_pad(true_len, self.kv.max_ctx - prev)
+        prog = self._prefill_program(true_len, pad_to, ctx)  # OFF the clock
+        host = self._prefill_host(slot, tokens, pad_to, prev)
         t0 = time.perf_counter()
-        tok = self._append_fast(slot, tokens, prev, ctx)
+        tok = self._run_prefill(prog, host, ctx)
+        self.kv.lengths[slot] = prev + true_len
         dt = self._account_prefill(t0, true_len)
         return np.int32(tok), dt
 
@@ -381,6 +582,65 @@ class ReplicaEngine:
         return tok, dt
 
     # ----- decode -----------------------------------------------------------------
+    @torch.no_grad()
+    def _decode_step(self, ins: torch.Tensor, seq: torch.Tensor,
+                     ctx_limit: int) -> None:
+        """One step of the ragged decode chunk on device inputs ins =
+        [tokens | lens | emit | remaining] (n_slots each) + [step]. Lane s
+        is live while emit[s] and step < remaining[s]; its sampled token is
+        fed back, its length advances and its K/V row is folded in, while a
+        frozen lane's token, length and cache stay byte-identical. tokens,
+        lens and step advance in place; the sampled tokens go to seq[step].
+        Nothing is read back to the host."""
+        n = self.kv.n_slots
+        tokens, lens, emit, rem = ins[:4 * n].view(4, n)
+        step = ins[4 * n:]
+        logits, updates = self.model.decode_step(
+            self.params, tokens, self.kv.caches, lens, kv_lens=lens,
+            ctx_limit=ctx_limit, attention_impl=self.attention_impl)
+        sampled = self._argmax(logits)
+        live = (emit != 0) & (rem > step)
+        fold_decode_step(self.kv.caches, updates, lens, live)
+        lens.add_(live.to(lens.dtype))
+        tokens.copy_(torch.where(live, sampled, tokens))
+        seq.index_copy_(0, step.long(), sampled[None])
+        step.add_(1)
+
+    def _make_decode(self, n_steps: int, ctx_limit: int) -> Program:
+        """Buffers of a decode program, and its warm-up pass: one step with
+        every lane frozen (the inputs are all 0), so `fold_decode_step`
+        writes each slot's old bytes back and the cache is unchanged."""
+        n = self.kv.n_slots
+        prog = Program(("decode", n_steps, ctx_limit), 4 * n + 1,
+                       torch.zeros((n_steps, n), dtype=torch.int32,
+                                   device=self.device),
+                       functools.partial(self._decode_step,
+                                         ctx_limit=ctx_limit),
+                       steps=n_steps)
+        with uncounted(), side_stream(self.device):
+            prog.run_eager(1)
+        return prog
+
+    def _get_fused(self, n_steps: int, ctx_limit: int) -> Program:
+        """Fetch (or build and capture) the decode program of one (chunk,
+        ctx) bucket (the reference's `_get_fused`). Build time goes to
+        `self.compile_s`, never into a measured decode dt."""
+        return self._program(self._fused, (n_steps, ctx_limit),
+                             lambda: self._make_decode(n_steps, ctx_limit))
+
+    def warmup_decode(self, chunks=None, ctx_limits=None) -> float:
+        """Build decode programs so serving never hits a cold (chunk, ctx)
+        bucket. Defaults cover every bucket reachable on this replica: all
+        DECODE_CHUNKS × all power-of-two ctx buckets up to max_ctx. Returns
+        the seconds spent (also accumulated in `self.compile_s`)."""
+        if ctx_limits is None:
+            ctx_limits = self._ctx_buckets()
+        before = self.compile_s
+        for c in (chunks if chunks is not None else DECODE_CHUNKS):
+            for cl in dict.fromkeys(int(x) for x in ctx_limits):
+                self._get_fused(decode_chunk_bucket(int(c)), cl)
+        return self.compile_s - before
+
     def _remaining_vector(self, emit_mask: np.ndarray,
                           remaining) -> np.ndarray:
         """Normalize `remaining` (scalar or per-slot vector) into a
@@ -421,11 +681,13 @@ class ReplicaEngine:
                 f"tokens (max_ctx={self.kv.max_ctx})")
         return rem
 
-    @torch.no_grad()
     def decode_steps(self, next_tokens: np.ndarray, emit_mask: np.ndarray,
                      remaining) -> Tuple[np.ndarray, float]:
         """Run one RAGGED decode chunk across ALL slots (inactive slots
-        compute in lockstep but are masked out).
+        compute in lockstep but are masked out), through the program of
+        its (n_steps, ctx_limit) bucket: on a CUDA replica one replay of
+        its graph, which runs the bucket's n_steps; eagerly, max(remaining)
+        steps. Frozen lanes change nothing, so the two agree byte for byte.
 
         `remaining` is a scalar (every emitting slot consumes exactly that
         many tokens, clamped into [1, DECODE_CHUNKS[-1]]) or a per-slot
@@ -446,26 +708,12 @@ class ReplicaEngine:
         live_max = int(self.kv.lengths[emit_mask].max()) if emit_mask.any() \
             else 0
         ctx_limit = ctx_bucket(live_max + n_steps, self.kv.max_ctx)
-        self._kernels_ready()
-        vocab = self.cfg.vocab_size
+        prog = self._get_fused(n_steps, ctx_limit)  # OFF the clock
+        host = np.concatenate([np.asarray(next_tokens, np.int32),
+                               self.kv.lengths, emit_mask, rem, [0]])
         t0 = time.perf_counter()
-        dev = self.device
-        tokens = torch.as_tensor(np.asarray(next_tokens, np.int32), device=dev)
-        lens = torch.as_tensor(self.kv.lengths, device=dev)
-        emit = torch.as_tensor(emit_mask, device=dev)
-        rem_t = torch.as_tensor(rem, device=dev)
-        seq = []
-        for i in range(n_max):
-            logits, updates = self.model.decode_step(
-                self.params, tokens, self.kv.caches, lens, kv_lens=lens,
-                ctx_limit=ctx_limit, attention_impl=self.attention_impl)
-            sampled = logits[:, :vocab].argmax(dim=-1).to(torch.int32)
-            live = emit & (rem_t > i)
-            fold_decode_step(self.kv.caches, updates, lens, live)
-            lens = lens + live.to(lens.dtype)
-            tokens = torch.where(live, sampled, tokens)
-            seq.append(sampled)
-        out = torch.stack(seq).cpu().numpy()  # the one host sync per chunk
+        seq = self._run(prog, host, steps=n_max)
+        out = seq[:n_max].cpu().numpy()  # the one host sync per chunk
         self.kv.lengths += np.where(emit_mask, rem, 0).astype(np.int32)
         self._sync()
         dt = time.perf_counter() - t0

@@ -4,6 +4,10 @@
 the plain PyTorch version for a CPU tensor — only because the tensor lies on
 the CPU. `impl="torch"` always takes the plain version. There is no fallback
 that hides a failed launch: a CUDA tensor the kernel does not take raises.
+
+Each wrapper counts its launches (`launch_counts`). A replayed CUDA graph
+calls no wrapper, so the replica's programs (`engine.programs`) add what
+their capture counted on every replay (`add_launches`).
 """
 from __future__ import annotations
 
@@ -83,5 +87,17 @@ def launch_counts() -> Dict[str, int]:
 
 
 def reset_launch_counts() -> None:
-    for fn in KERNELS.values():
-        fn.launches = 0
+    set_launch_counts({name: 0 for name in KERNELS})
+
+
+def set_launch_counts(counts: Dict[str, int]) -> None:
+    for name, fn in KERNELS.items():
+        fn.launches = counts[name]
+
+
+def add_launches(counts: Dict[str, int], times: int = 1) -> None:
+    """Count `times` replays of a captured CUDA graph that holds `counts`
+    launches of each kernel: a replay runs them without calling a wrapper
+    (`engine.programs`)."""
+    for name, n in counts.items():
+        KERNELS[name].launches += n * times

@@ -1,4 +1,5 @@
-"""Where the time of one decode chunk and one turn-1 prefill goes, on a card.
+"""Where the time of one decode chunk and one turn-1 prefill goes, on a card,
+with the replica's CUDA graphs and without them.
 
     python -m repro_torch.launch.profile
            [--arch qwen3-0.6b|rwkv6-3b|recurrentgemma-9b]
@@ -8,7 +9,10 @@ Builds one decode replica of `--arch` (default qwen3-0.6b; full width,
 bf16, seeded torch init), fills every slot with a `--ctx`-token
 conversation, and traces with `torch.profiler` one ragged decode chunk of
 `--steps` steps over all slots and one turn-1 prefill of `--prefill`
-tokens. For each it prints the measured wall time (host clock, ending in
+tokens, each twice: through the same bodies run eagerly
+(`cuda_graphs=False`) and replayed from the bucket's CUDA graph (built and
+captured by an untraced call first; its capture seconds are printed). For
+each it prints the measured wall time (host clock, ending in
 `torch.cuda.synchronize()`), the summed device time of the kernels the
 trace saw and its share of the wall time (the device's busy share; the
 rest is idle, waiting on the host), the number of kernel launches, and the
@@ -36,13 +40,26 @@ def _device_us(evt) -> float:
     return 0.0
 
 
-def _report(title, prof, wall_s, top):
+def kernel_rows(prof):
+    """(name, device µs, launches) of each CUDA kernel a trace saw."""
     import torch
-
-    from repro_torch.kernels import ops
     rows = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
-    rows = [r for r in rows if r[1] > 0]
+    return [r for r in rows if r[1] > 0]
+
+
+def traced(fn):
+    """Run `fn()` once under `torch.profiler` (CPU and CUDA activity).
+    Returns (its result, `kernel_rows` of the trace)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+    return out, kernel_rows(prof)
+
+
+def _report(title, rows, wall_s, top):
+    from repro_torch.kernels import ops
     busy_ms = sum(r[1] for r in rows) / 1e3
     launches = sum(r[2] for r in rows)
     print(f"{title}: wall {wall_s * 1e3:.3f} ms, device busy {busy_ms:.3f} ms "
@@ -52,14 +69,17 @@ def _report(title, prof, wall_s, top):
         print(f"  {us / 1e3:9.3f} ms {100 * us / 1e3 / busy_ms:5.1f}%  "
               f"x{n:<5d} {key[:90]}")
     print(f"  port kernel launches: {ops.launch_counts()}")
-    traced = {name: (sum(n for key, _, n in rows if sym in key),
+    counts = {name: (sum(n for key, _, n in rows if sym in key),
                      sum(us for key, us, _ in rows if sym in key) / 1e3)
               for name, sym in TRACE_NAMES.items()}
     print("  port kernels in the trace (launches, device ms): "
           + ", ".join(f"{name} {n} {ms:.3f}"
-                      for name, (n, ms) in traced.items()))
+                      for name, (n, ms) in counts.items()))
     ops.reset_launch_counts()
     return busy_ms, launches
+
+
+MODES = ((False, "eager"), (True, "CUDA graph"))
 
 
 def main(argv=None):
@@ -74,11 +94,11 @@ def main(argv=None):
 
     import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.configs import get_config
     from repro_torch.device import resolve_device
     from repro_torch.engine import ReplicaEngine
+    from repro_torch.engine.replica import ctx_bucket, decode_chunk_bucket
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
 
@@ -94,33 +114,50 @@ def main(argv=None):
         nt[s] = int(eng.prefill_conversation(
             s, rs.randint(0, cfg.vocab_size, args.ctx))[0])
     em = np.ones(args.slots, bool)
-    eng.decode_steps(nt, em, 2)  # warm
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     print(f"{torch.cuda.get_device_name(0)}; {cfg.name} {cfg.dtype}, "
           f"{cfg.n_layers} layers, {args.slots} slots at ctx ~{args.ctx}")
-    _, dt0 = eng.decode_steps(nt, em, args.steps)
-    print(f"decode chunk without the profiler: {dt0 * 1e3:.3f} ms "
-          f"({dt0 * 1e3 / args.steps:.3f} ms per step)")
-    ops.reset_launch_counts()
-    with profile(activities=acts) as prof:
-        _, dt = eng.decode_steps(nt, em, args.steps)
-    _report(f"decode chunk ({args.steps} steps x {args.slots} slots, "
-            f"profiled)", prof, dt, TOP)
+    n_steps = decode_chunk_bucket(args.steps)
+    for graphs, label in MODES:
+        eng.cuda_graphs = graphs
+        for _ in range(2):  # warm: build (and capture) the next buckets
+            eng.decode_steps(nt, em, args.steps)
+        ctx = ctx_bucket(int(eng.kv.lengths.max()) + n_steps, 1024)
+        _, dt0 = eng.decode_steps(nt, em, args.steps)
+        prog = eng._fused[(n_steps, ctx)]
+        print(f"decode chunk, {label}, without the profiler: "
+              f"{dt0 * 1e3:.3f} ms ({dt0 * 1e3 / args.steps:.3f} ms per "
+              f"step); bucket ({n_steps}, {ctx}) captured in "
+              f"{prog.capture_s:.3f} s")
+        ops.reset_launch_counts()
+        (_, dt), rows = traced(lambda: eng.decode_steps(nt, em, args.steps))
+        _report(f"decode chunk, {label} ({args.steps} steps x {args.slots} "
+                f"slots, profiled)", rows, dt, TOP)
 
     toks = rs.randint(0, cfg.vocab_size, args.prefill)
-    for profiled in (False, True):
-        eng.kv.release(0)
-        s = eng.kv.acquire()
-        torch.cuda.synchronize()
-        if not profiled:
-            _, dt = eng.prefill_conversation(s, toks)
-            print(f"turn-1 prefill without the profiler: {dt * 1e3:.3f} ms")
-            continue
-        ops.reset_launch_counts()
-        with profile(activities=acts) as prof:
-            _, dt = eng.prefill_conversation(s, toks)
-        _report(f"turn-1 prefill ({args.prefill} tokens, profiled)", prof,
-                dt, TOP)
+    if eng.exact_prefill:
+        print("turn-1 prefill: a recurrent model prefills at the exact "
+              "length, eagerly, in both modes")
+    for graphs, label in MODES[:1] if eng.exact_prefill else MODES:
+        eng.cuda_graphs = graphs
+        for profiled in (None, False, True):  # warm, timed, traced
+            eng.kv.release(0)
+            s = eng.kv.acquire()
+            torch.cuda.synchronize()
+            if profiled is None:
+                eng.prefill_conversation(s, toks)
+            elif not profiled:
+                _, dt = eng.prefill_conversation(s, toks)
+                print(f"turn-1 prefill, {label}, without the profiler: "
+                      f"{dt * 1e3:.3f} ms")
+            else:
+                ops.reset_launch_counts()
+                (_, dt), rows = traced(
+                    lambda: eng.prefill_conversation(s, toks))
+                _report(f"turn-1 prefill, {label} ({args.prefill} tokens, "
+                        f"profiled)", rows, dt, TOP)
+    print(f"programs {len(eng.programs())}, compile_s {eng.compile_s:.3f} s, "
+          f"graph pool {eng.graph_pool_bytes() / 2**20:.1f} MiB, peak "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB")
 
 
 if __name__ == "__main__":

@@ -24,6 +24,7 @@ from .layers import apply_rope, param, rope_freqs
 
 NEG_INF = -1e30
 ATTN_IMPLS = ("torch", "cuda")
+PREFIX_KV_CHUNK = 512  # key chunk of an (append-)prefill against a prefix
 
 
 class Attention(nn.Module):
@@ -320,23 +321,34 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
     new_cache = {"k": k, "v": v}
 
     if prefix_kv is not None:
+        # The prefix is padded with masked rows to whole key chunks, so the
+        # new tokens' keys always start a chunk: a prefix trimmed to its ctx
+        # bucket and the whole max_ctx buffer then run the same chunks, the
+        # buffer's extra ones fully masked (exact no-ops), and give the same
+        # bytes on any device, not only where a sum's order does not depend
+        # on its length.
         P = prefix_kv["k"].shape[1]
+        pad = (-P) % PREFIX_KV_CHUNK
         pstart = (start_pos - P) if prefix_start is None else prefix_start
-        kv_pos = torch.cat([pstart + torch.arange(P, device=x.device), pos])
-        k_all = torch.cat([_repeat_kv(prefix_kv["k"], cfg.n_heads),
-                           _repeat_kv(k, cfg.n_heads)], dim=1)
-        v_all = torch.cat([_repeat_kv(prefix_kv["v"], cfg.n_heads),
-                           _repeat_kv(v, cfg.n_heads)], dim=1)
+        kv_pos = torch.cat([pstart + torch.arange(P, device=x.device),
+                            pos.new_full((pad,), 2**31 - 1), pos])
+
+        def keys(prefix, new):
+            prefix = torch.nn.functional.pad(
+                _repeat_kv(prefix, cfg.n_heads), (0, 0, 0, 0, 0, pad))
+            return torch.cat([prefix, _repeat_kv(new, cfg.n_heads)], dim=1)
+        k_all, v_all = keys(prefix_kv["k"], k), keys(prefix_kv["v"], v)
         kv_valid = None
         if kv_lens is not None:
             # padding lives only in the prefix region; new tokens are valid
             kv_valid = torch.cat(
-                [torch.arange(P, device=x.device)[None, :]
+                [torch.arange(P + pad, device=x.device)[None, :]
                  < kv_lens.to(x.device)[:, None],
                  torch.ones((B, S), dtype=torch.bool, device=x.device)],
                 dim=1)
         out = online_attention(q, k_all, v_all, pos, kv_pos, causal=True,
-                               window=window, kv_valid=kv_valid)
+                               window=window, kv_valid=kv_valid,
+                               kv_chunk=PREFIX_KV_CHUNK)
     elif attention_impl == "cuda" and kv_lens is None and window == 0:
         from repro_torch.kernels import ops
         out = ops.prefill_attention(q, k, v, impl="cuda")

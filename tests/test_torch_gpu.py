@@ -32,9 +32,15 @@ blocked scan of up to 16 segments a tile; it is held against the step recurrence
 within 1e-5 (fp32) and 1e-5 of the result's magnitude (bf16 inputs,
 widened exactly) at its segment and tile edges, W not a multiple of 32,
 and every mix of input dtypes. Each launch is counted, a CUDA-graph replay
-of K1, K3 and K4 equals the eager call bit for bit, and the reduced models
-served through the kernels give the same greedy tokens as the torch
-paths."""
+of K1, K2, K3 and K4 equals the eager call bit for bit, and the reduced
+models served through the kernels give the same greedy tokens as the torch
+paths. The replica's programs (`engine/programs.py`, one CUDA graph per
+bucket key): graph against eager for each family in fp32 — tokens and
+caches byte-identical through a ragged chunk, a slot joining, an append and
+a bucket captured after a kill and rejoin — the launches each replay
+counts, the cache unchanged by a capture, the refusal of a moved tensor,
+and graphed prefill and appends against the reference path byte for
+byte."""
 import numpy as np
 import pytest
 
@@ -230,7 +236,8 @@ def test_engine_kernels_match_torch_path_and_count_launches(cuda):
                                    "rglru": 0}
     assert roll("cuda") == want
     counts = ops.launch_counts()
-    assert counts["decode_attention"] == 5 * cfg.n_layers
+    # the chunk of 5 replays its bucket's graph, which runs 8 steps
+    assert counts["decode_attention"] == 8 * cfg.n_layers
     assert counts["prefill_attention"] == 2 * cfg.n_layers
     assert counts["wkv6"] == 0
 
@@ -609,3 +616,182 @@ def test_fp32_failure_replay_is_byte_identical(cuda, rejoin):
     cpu = _gpu_serve(torch.device("cpu"), "conserve", server_cls=Killed,
                      server_kw=kill)
     assert bookkeeping(srv, recs) == bookkeeping(*cpu[:2])
+
+
+# --------------------------------------------------------------------------- #
+# the replica's compiled programs: one CUDA graph per bucket key
+# --------------------------------------------------------------------------- #
+GRAPH_ARCHS = {"qwen3-0.6b": {}, "rwkv6-3b": {},
+               "recurrentgemma-9b": {"window": 256}}
+
+
+def _caches(eng):
+    from repro_torch.engine.kvcache import leaves
+    return [t.clone() for _, t in leaves(eng.kv.caches)]
+
+
+def _put(eng, saved, lengths):
+    from repro_torch.engine.kvcache import leaves
+    for (_, t), s in zip(leaves(eng.kv.caches), saved):
+        t.copy_(s)
+    eng.kv.lengths[:] = lengths
+
+
+def _graph_engine(cuda, arch, **kw):
+    cfg = get_reduced(arch).scaled(**GRAPH_ARCHS[arch])
+    params = build_model(cfg).init(0, cuda)
+    return ReplicaEngine(cfg, params, n_slots=4, max_ctx=256,
+                         attention_impl="cuda", **kw)
+
+
+def _script(eng):
+    """Prefills, a ragged chunk, a slot joining between chunks, a second
+    chunk, a kill (every slot invalidated, the cache kept) and a rejoin
+    whose chunk lands in a bucket not captured before. Returns the tokens
+    and the cache after each step."""
+    out = []
+    nt = np.zeros(4, np.int32)
+    em = np.zeros(4, bool)
+    for n in (37, 90):
+        s = eng.kv.acquire()
+        nt[s], em[s] = int(eng.prefill_conversation(
+            s, np.arange(3 + n, 3 + 2 * n, dtype=np.int32))[0]), True
+    rem = np.where(em, [7, 3, 0, 0], 0).astype(np.int32)
+    seq, _ = eng.decode_steps(nt, em, rem)
+    out.append((seq, _caches(eng)))
+    nt[em] = seq[rem[em] - 1, np.flatnonzero(em)]
+    s = eng.kv.acquire()  # joins between the two chunks
+    t, _ = eng.prefill_conversation(s, np.arange(200, 230, dtype=np.int32))
+    nt[s], em[s] = int(t), True
+    t2, _ = eng.append_prefill(0, np.arange(60, 75, dtype=np.int32))
+    nt[0] = int(t2)
+    seq, _ = eng.decode_steps(nt, em, 4)
+    out.append((seq, _caches(eng)))
+    eng.kv.invalidate_all()  # the server's kill; the rejoin keeps the cache
+    s = eng.kv.acquire()
+    t, _ = eng.prefill_conversation(s, np.arange(9, 180, dtype=np.int32))
+    nt[:], em[:] = 0, False
+    nt[s], em[s] = int(t), True
+    seq, _ = eng.decode_steps(nt, em, 2)
+    out.append((seq, _caches(eng)))
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_graphs_equal_eager_tokens_and_caches(cuda, arch):
+    """fp32, TF32 off: the same script through the CUDA graphs and through
+    the same bodies run eagerly (`cuda_graphs=False`) gives the same tokens
+    and byte-identical caches — a ragged chunk, a slot joining between
+    chunks (the split-chunk contract), an append, and a bucket captured
+    after a kill and rejoin."""
+    graph = _script(_graph_engine(cuda, arch))
+    eager = _script(_graph_engine(cuda, arch, cuda_graphs=False))
+    for (sg, cg), (se, ce) in zip(graph, eager):
+        np.testing.assert_array_equal(sg, se)
+        assert all(torch.equal(a, b) for a, b in zip(cg, ce))
+
+
+@pytest.mark.gpu
+def test_cuda_prefill_kernel_graph_replay_equals_eager(cuda):
+    q = _rand(cuda, "bfloat16", 8, (1, 200, 16, 128))
+    k, v = (_rand(cuda, "bfloat16", i, (1, 200, 8, 128)) for i in (9, 10))
+    _graph_replay_equals_eager((q, k, v),
+                               lambda: (flash_prefill_attention(q, k, v),))
+
+
+@pytest.mark.gpu
+def test_program_launch_counts_per_replay(cuda):
+    """A capture records what each port kernel's wrapper counted; each
+    replay adds exactly that, and the build (warm-up pass and capture)
+    counts nothing. qwen's decode graph of 8 steps holds 8 K1 launches a
+    layer, its turn-1 graph one K2 launch a layer, its append graph none
+    (appends attend in torch ops)."""
+    eng = _graph_engine(cuda, "qwen3-0.6b")
+    L = eng.cfg.n_layers
+    ops.reset_launch_counts()
+    eng.warmup_decode(chunks=(8,), ctx_limits=(64,))
+    eng.warmup_prefill(lengths=(64,), ctx_limits=(64,))
+    assert sum(ops.launch_counts().values()) == 0
+    assert eng._fused[(8, 64)].launches == {"decode_attention": 8 * L}
+    assert eng._prefill[64].launches == {"prefill_attention": L}
+    assert eng._append[(64, 64)].launches == {}
+    s = eng.kv.acquire()
+    t, _ = eng.prefill_conversation(s, np.arange(5, 50, dtype=np.int32))
+    nt = np.zeros(4, np.int32)
+    em = np.zeros(4, bool)
+    nt[s], em[s] = int(t), True
+    eng.decode_steps(nt, em, 5)  # bucket 8: the graph runs 8 steps
+    eng.append_prefill(s, np.arange(70, 80, dtype=np.int32))
+    assert ops.launch_counts() == {"decode_attention": 8 * L,
+                                   "prefill_attention": L, "wkv6": 0,
+                                   "rglru": 0}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("arch", list(GRAPH_ARCHS))
+def test_capture_leaves_the_cache_byte_identical(cuda, arch):
+    """Building a program runs one warm-up pass before the capture (decode
+    with every lane frozen; a prefill with its slot saved and restored):
+    live slots keep every byte."""
+    eng = _graph_engine(cuda, arch)
+    for n in (37, 120):
+        eng.prefill_conversation(eng.kv.acquire(),
+                                 np.arange(n, 2 * n, dtype=np.int32))
+    before = _caches(eng)
+    eng.warmup_decode(chunks=(1, 8), ctx_limits=(64, 256))
+    eng.warmup_prefill(lengths=(32, 128), ctx_limits=(64, 256))
+    assert all(p.graph is not None for p in eng.programs().values())
+    assert all(torch.equal(a, b) for a, b in zip(before, _caches(eng)))
+
+
+@pytest.mark.gpu
+def test_replay_refuses_a_moved_tensor(cuda):
+    """A graph replays fixed addresses: a cache leaf or a weight that moved
+    since the capture raises, naming it, before anything runs."""
+    eng = _graph_engine(cuda, "qwen3-0.6b")
+    s = eng.kv.acquire()
+    t, _ = eng.prefill_conversation(s, np.arange(5, 40, dtype=np.int32))
+    nt = np.zeros(4, np.int32)
+    em = np.zeros(4, bool)
+    nt[s], em[s] = int(t), True
+    eng.decode_steps(nt, em, 2)
+    leaf = eng.kv.caches["groups"]["p0"]
+    leaf["k"] = leaf["k"].clone()
+    with pytest.raises(RuntimeError, match=r"cache groups/p0/k moved"):
+        eng.decode_steps(nt, em, 2)
+    eng2 = _graph_engine(cuda, "qwen3-0.6b")
+    s = eng2.kv.acquire()
+    eng2.prefill_conversation(s, np.arange(5, 40, dtype=np.int32))
+    w = eng2.params.blocks[0].mlp.wi
+    w.data = w.data.clone()
+    with pytest.raises(RuntimeError, match=r"weight blocks.0.mlp.wi moved"):
+        eng2.prefill_conversation(eng2.kv.acquire(),
+                                  np.arange(5, 40, dtype=np.int32))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["cuda", "torch"])
+def test_fast_and_reference_prefill_caches_byte_identical(cuda, impl):
+    """tests/test_torch_engine.py's CPU case on the card: a turn-1 prefill
+    and two appends (the prefix crossing a ctx bucket) through the graphed
+    programs and through `prefill_mode="reference"` give the same tokens
+    and byte-identical caches (fp32, TF32 off)."""
+    cfg = get_reduced("qwen3-0.6b")
+    params = build_model(cfg).init(0, cuda)
+    out, caches = {}, {}
+    for mode in ("jit", "reference"):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=256,
+                            prefill_mode=mode, attention_impl=impl)
+        slot = eng.kv.acquire()
+        t1, _ = eng.prefill_conversation(slot, np.arange(5, 50,
+                                                         dtype=np.int32))
+        t2, _ = eng.append_prefill(slot, np.arange(100, 131, dtype=np.int32))
+        t3, _ = eng.append_prefill(slot, np.arange(200, 215, dtype=np.int32))
+        out[mode] = (int(t1), int(t2), int(t3))
+        caches[mode] = _caches(eng)
+    assert out["jit"] == out["reference"]
+    diffs = [[float((x - y).abs().max()) for x, y in zip(a, b)]
+             for a, b in zip(caches["jit"], caches["reference"])]
+    assert all(torch.equal(a, b) for a, b in zip(caches["jit"],
+                                                 caches["reference"])), diffs
