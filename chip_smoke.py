@@ -3,17 +3,18 @@
 
     python3 chip_smoke.py
 
-Drives the port's three served paths — ConServe over `ReplicaEngine`,
+Drives the port's served paths — ConServe over `ReplicaEngine`,
 `EngineServer` and `make_scheduler("conserve")`, serving qwen3-0.6b,
 rwkv6-3b and recurrentgemma-9b at full width — then qwen3-0.6b under the
-paper's baselines, through failures and live through the gateway, and
-holds each hand-written CUDA kernel of those paths against its plain
-PyTorch version on the card. Every replica runs its decode chunks, turn-1
-prefills and appends through its programs' CUDA graphs (the default), so
-the launch counts of the served phases count replays (each replay adds
-what its capture recorded), and each served phase prints its compile_s
-(kernel builds and program captures, never in a dt), the programs it
-captured, their graph pools and peak memory beside TTFET p95 and TBT.
+paper's baselines, through failures and live through the gateway, then the
+reference's dense family (olmo-1b, stablelm-12b, nemotron-4-15b, gemma3-12b)
+at full width, and holds each hand-written CUDA kernel of those paths
+against its plain PyTorch version on the card. Every replica runs its decode
+chunks, turn-1 prefills and appends through its programs' CUDA graphs (the
+default), so the launch counts of the served phases count replays (each
+replay adds what its capture recorded), and each served phase prints its
+compile_s (kernel builds and program captures, never in a dt), the programs
+it captured, their graph pools and peak memory beside TTFET p95 and TBT.
 Phases, each raising on failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
@@ -96,12 +97,30 @@ Phases, each raising on failure:
      prints the count of equal tokens. Phase 4 also runs qwen3-0.6b's
      graphed turn-1 prefill and appends against the eager fast path (byte-
      identical caches, gated) and `prefill_mode="reference"` (equal tokens,
-     gated; each layer's largest cache difference printed).
+     gated; each layer's largest cache difference printed);
+ 12. the dense family, each model at its published widths and freed before
+     the next: (a) K1 and K2 at its (H, Hkv, D) — D = 160 (stablelm-12b),
+     G = 6 (nemotron-4-15b), D = 240 (gemma3-12b's global layers), G = 1
+     (olmo-1b) — against their plain versions as in phase 3, K1 at 16
+     slots of a 1024 buffer through the 64, 256 and 1024 buckets, K2 at
+     S = 200, 256, 512 and 1024; (b) fp32 with TF32 off, full depth (cut
+     only if the weights would not fit, and printed): a 150-token prefill
+     and a decode step under "cuda" and "torch" — logits within 1e-3 of
+     max(1, max|logit|), K1 and K2 each launched once per global layer —
+     and 8 greedy decode steps of a ReplicaEngine pair, equal; (c) bf16 at
+     full width and depth, served as in 5b — 8 of 8 complete, one KV
+     transfer each, K1's launches a positive multiple of the global
+     layers, K2's the global layers times the 8 turn-1 prefills, K3 and
+     K4 at 0; (d) gemma3-12b, whose pattern differs: phase 11's graph
+     against eager check in fp32, at the depth that holds the eager pass's
+     three cache copies (printed). Prints its wall time.
 
 Each model is freed before the next is loaded. The last four lines of
 standard output are the script's wall time, the card's name and power
-limit, one JSON object with a record per kernel, and `{"ok": true,
-"device": {...}}`. Without a card, or without the repository around it, it
+limit, one JSON object with a record per kernel (K1's and K2's with their
+phase-10 launches and, under "phase12", each dense model's served
+launches and bf16 records at its heads), and `{"ok": true, "device":
+{...}}`. Without a card, or without the repository around it, it
 exits non-zero before printing any result.
 
     python3 chip_smoke.py --kernels-only
@@ -656,7 +675,7 @@ def phase_fp32_parity(torch, cfg, device, card, n_decode=8):
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("greedy tokens differ between attention impls")
     del caches, cache
-    phase_graphs(torch, cfg, params, card, "a")
+    phase_graphs(torch, cfg, params, card, "11a")
     phase_prefill_reference(torch, cfg, params)
     del params
     torch.cuda.empty_cache()
@@ -812,7 +831,7 @@ def phase_serve(torch, cfg, device, card):
     log(f"phase 5: {cfg.name} full width {cfg.dtype}, EngineServer + "
         f"ConServe, strict accounting")
     params = build_model(cfg).init(0, device)
-    phase_graphs(torch, cfg, params, card, "b", gate=False)
+    phase_graphs(torch, cfg, params, card, "11b", gate=False)
     golden = json.loads(GOLDEN.read_text())
     got = golden_summary(cfg, params, device)
     if got != golden:
@@ -917,7 +936,7 @@ def phase_rwkv_fp32_parity(torch, cfg, device, card, n_decode=8):
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("rwkv6 greedy tokens differ between impls")
     del caches, eng
-    phase_graphs(torch, cfg, params, card, "c")
+    phase_graphs(torch, cfg, params, card, "11c")
     del params
     torch.cuda.empty_cache()
 
@@ -1004,7 +1023,7 @@ def phase_rg_fp32_parity(torch, cfg, device, card, n_decode=8):
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("recurrentgemma greedy tokens differ between "
                              "impls")
-    phase_graphs(torch, cfg, params, card, "d")
+    phase_graphs(torch, cfg, params, card, "11d")
     del params
     torch.cuda.empty_cache()
 
@@ -1091,7 +1110,7 @@ def phase_graphs(torch, cfg, params, card, tag, gate=True):
     from repro_torch.engine import ReplicaEngine
     from repro_torch.engine.kvcache import leaves
     from repro_torch.launch.profile import traced
-    log(f"phase 11{tag}: {cfg.name} full width {cfg.dtype}, the CUDA graphs "
+    log(f"phase {tag}: {cfg.name} full width {cfg.dtype}, the CUDA graphs "
         f"against the same bodies run eagerly, on one cache")
     gc.collect()
     torch.cuda.empty_cache()
@@ -1477,6 +1496,235 @@ def phase_compare(torch, cfg, device, card, conserve):
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 12: the reference's dense family at full width
+# --------------------------------------------------------------------------- #
+DENSE = ("olmo-1b", "stablelm-12b", "nemotron-4-15b", "gemma3-12b")
+# fp32 full-width logits, K1/K2 against the torch path, relative to
+# max(1, max|logit|): the kernels and the plain path sum the same fp32
+# products in another order, and 16-48 layers carry that into the logits
+DENSE_LOGIT_RTOL = 1e-3
+DENSE_PROMPT = 150  # the fp32 parity's prefill, then 8 decode steps
+
+
+def n_global(cfg) -> int:
+    """The layers that reach K1 and K2: the global-attention ones."""
+    return sum(k == "attn_global" for k in cfg.layer_kinds())
+
+
+def dense_kernels(torch, cfg):
+    """(a) K1 and K2 at the model's (H, Hkv, D) in fp32 and bf16 against
+    their plain versions, as phase 3 at qwen's: K1 over 16 slots of a 1024
+    buffer through the 64, 256 and 1024 buckets, K2 at S = 200, 256, 512 and
+    1024. Returns the bf16 records at the served shapes (K1 at the 256
+    bucket, K2 at S = 256 and 512)."""
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"  (a) K1, K2 at H={H} Hkv={Hkv} D={D} (G = {H // Hkv}) vs plain "
+        f"(fp32 tol 2e-5, bf16 tol 2e-2)")
+    recs = {"decode_attention": {}, "prefill_attention": {}}
+    for dtype in ("float32", "bfloat16"):
+        for S in (64, 256, 1024):
+            r = check_decode(torch, dtype, 16, 1024, S, H, Hkv, D,
+                             decode_lengths(S))
+            log(f"  K1 {dtype:8s} B=16 S={S:4d} {_k1_grid(16, Hkv, S, D)}: "
+                f"max|err| {r['max_abs_err']:.3e}  {_times(r)}")
+            if dtype == "bfloat16" and S == 256:
+                recs["decode_attention"]["bf16 B=16 S=256"] = r
+        for S in (200, 256, 512, 1024):
+            r = check_prefill(torch, dtype, 1, S, H, Hkv, D, 0)
+            log(f"  K2 {dtype:8s} B=1 S={S:4d}: max|err| "
+                f"{r['max_abs_err']:.3e}  {_times(r)}")
+            if dtype == "bfloat16" and S in (256, 512):
+                recs["prefill_attention"][f"bf16 B=1 S={S}"] = r
+    return recs
+
+
+def fit_depth(torch, cfg, per_layer_extra: float = 0.0,
+              reserve_bytes: float = 4 * 2**30):
+    """cfg at full width, its depth cut (whole pattern repetitions) only if
+    its weights, plus `per_layer_extra` bytes a layer (cache copies), would
+    not fit the card beside `reserve_bytes` and a tenth of the card;
+    counted from the LM's parameters on the meta device. Prints either."""
+    from repro_torch.models.transformer import LM
+    lm = LM(cfg, "meta")
+    isz = cfg.torch_dtype.itemsize
+    per_layer = [sum(p.numel() for p in b.parameters()) * isz
+                 + per_layer_extra for b in lm.blocks]
+    fixed = (sum(p.numel() for p in lm.parameters()) * isz
+             - sum(per_layer) + per_layer_extra * len(per_layer))
+    room = 0.9 * torch.cuda.mem_get_info()[1] - reserve_bytes - fixed
+    rep = len(cfg.block_pattern)
+    n = cfg.n_layers
+    while n > rep and sum(per_layer[:n]) > room:
+        n -= rep
+    need = (fixed + sum(per_layer[:n])) / 1e9
+    if n == cfg.n_layers:
+        log(f"  {cfg.name} {cfg.dtype}: {need:.2f} GB of weights and "
+            f"caches, all {n} layers fit")
+        return cfg
+    log(f"  {cfg.name} {cfg.dtype}: depth cut from {cfg.n_layers} to {n} "
+        f"layers (widths unchanged) to fit {need:.2f} GB of weights and "
+        f"caches on the card")
+    return cfg.scaled(n_layers=n)
+
+
+def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
+    """(b) full width in fp32, TF32 off: a 150-token prefill and one decode
+    step through K2/K1 ("cuda") and the torch path on the same weights —
+    logits within DENSE_LOGIT_RTOL x max(1, max|logit|), K1 and K2 each
+    launched once per global layer — then greedy tokens of a ReplicaEngine
+    pair over 8 decode steps, equal. Depth is cut only if the weights do
+    not fit (printed)."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = fit_depth(torch, cfg.scaled(dtype="float32"))
+    log(f"  (b) {cfg.name} full width fp32 ({cfg.n_layers} layers, "
+        f"{n_global(cfg)} global), attention_impl cuda vs torch")
+    model = build_model(cfg)
+    params = model.init(0, device)
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                              DENSE_PROMPT)
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    logits, caches = {}, {}
+    ops.reset_launch_counts()
+    for impl in ("cuda", "torch"):
+        logits[impl], caches[impl] = model.prefill(params, toks,
+                                                   attention_impl=impl)
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+    nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    cache = {k: {kk: {n: torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, 64)) for n, t in vv.items()}
+        for kk, vv in v.items()} for k, v in caches["torch"].items()}
+    dl = {impl: model.decode_step(params, nxt, cache, pos, kv_lens=pos,
+                                  attention_impl=impl)[0]
+          for impl in ("cuda", "torch")}
+    counts = ops.launch_counts()
+    want = {"decode_attention": n_global(cfg),
+            "prefill_attention": n_global(cfg), "wkv6": 0, "rglru": 0}
+    if counts != want:
+        raise AssertionError(f"one prefill and one decode step launched "
+                             f"{counts}, not {want}")
+    scale = max(1.0, float(logits["torch"].abs().max()))
+    err_p = max_err(logits["cuda"], logits["torch"])
+    err_d = max_err(dl["cuda"], dl["torch"])
+    log(f"  launches of one prefill + one decode step {counts}")
+    log(f"  logits max|err| prefill {err_p:.3e}, decode {err_d:.3e}, "
+        f"max|logit| {scale:.3f} (tol {DENSE_LOGIT_RTOL} x max(1, "
+        f"max|logit|))")
+    if not (err_p < DENSE_LOGIT_RTOL * scale
+            and err_d < DENSE_LOGIT_RTOL * scale):
+        raise AssertionError(f"{cfg.name}: fp32 logits differ between "
+                             "attention impls")
+    del caches, cache, logits, dl
+    streams = {}
+    for impl in ("cuda", "torch"):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=512,
+                            attention_impl=impl)
+        s = eng.kv.acquire()
+        t, _ = eng.prefill_conversation(s, prompt)
+        nt = np.zeros(2, np.int32)
+        em = np.zeros(2, bool)
+        nt[s], em[s] = int(t), True
+        seq, _ = eng.decode_steps(nt, em, n_decode)
+        streams[impl] = [int(t)] + [int(x) for x in seq[:, s]]
+        del eng
+    log(f"  greedy tokens cuda  {streams['cuda']}")
+    log(f"  greedy tokens torch {streams['torch']}")
+    if streams["cuda"] != streams["torch"]:
+        raise AssertionError(f"{cfg.name}: greedy tokens differ between "
+                             "attention impls")
+    del params
+    torch.cuda.empty_cache()
+
+
+def dense_graphs(torch, cfg, device, card):
+    """(d) phase 11's check in fp32 (TF32 off) on fresh weights: the CUDA
+    graphs against the same bodies run eagerly, tokens equal and caches
+    byte-identical after every chunk. Its eager pass keeps three copies of
+    the 16-slot, 1024-row cache beside the live one (4 x 7.5 GB for
+    gemma3-12b in fp32), so the depth is cut to fit, and printed."""
+    from repro_torch.models import build_model
+    cfg = cfg.scaled(dtype="float32")
+    cache_layer = 2 * cfg.n_kv_heads * cfg.head_dim * 4 * 1024 * GRAPH_SLOTS
+    cfg = fit_depth(torch, cfg, per_layer_extra=4 * cache_layer)
+    params = build_model(cfg).init(0, device)
+    phase_graphs(torch, cfg, params, card, "12 (d)")
+    del params
+    torch.cuda.empty_cache()
+
+
+def dense_serve(torch, cfg, device, card):
+    """(c) full width and depth in bf16 under ConServe, through the CUDA
+    graphs, strict accounting (`serve_and_count`): 8 of 8 conversations,
+    one KV transfer each, K1's launches a positive multiple of the global
+    layers, K2's the global layers times the 8 turn-1 prefills, K3 and K4
+    at 0."""
+    from repro_torch.models import build_model
+    log(f"  (c) {cfg.name} full width {cfg.dtype} ({cfg.n_layers} layers), "
+        f"EngineServer + ConServe, strict accounting")
+    params = build_model(cfg).init(0, device)
+    n_conv = 8
+    launches, run = serve_and_count(torch, cfg, params, card, PATH_KERNELS,
+                                    "", absent=("wkv6", "rglru"),
+                                    n_conversations=n_conv)
+    L = n_global(cfg)
+    k1, k2 = launches["decode_attention"], launches["prefill_attention"]
+    if k1 % L:
+        raise AssertionError(f"{k1} K1 launches are not {L} a decode step")
+    if k2 != L * n_conv:
+        raise AssertionError(f"{k2} K2 launches != {L} global layers x "
+                             f"{n_conv} turn-1 prefills")
+    del params, run
+    torch.cuda.empty_cache()
+    return launches
+
+
+def dense_records(recs, launches):
+    """Phase 12's numbers for the kernels' JSON line: for K1 and K2, each
+    model's served launches and its bf16 records at the served shapes."""
+    return {name: {arch: dict(launches=launches[arch][name],
+                              **recs[arch][name])
+                   for arch in DENSE}
+            for name in PATH_KERNELS}
+
+
+def phase_dense(torch, device, card):
+    """Phase 12: for each of the reference's dense family, (a) K1 and K2 at
+    its heads, (b) fp32 parity at full width, (d) for gemma3-12b the graphs
+    against eager in fp32, (c) served in bf16 at full width and depth; each
+    model freed before the next. Returns ({arch: bf16 kernel records},
+    {arch: served launches})."""
+    import gc
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    log("phase 12: the dense family at full width — "
+        + ", ".join(DENSE))
+    recs, launches = {}, {}
+    for arch in DENSE:
+        cfg = get_config(arch)
+        log(f" {arch}: {cfg.n_layers} layers ({n_global(cfg)} global), "
+            f"d_model {cfg.d_model}, H {cfg.n_heads} / Hkv {cfg.n_kv_heads}"
+            f" of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+            f"norm {cfg.norm}, {cfg.activation}, gated {cfg.gated_mlp}")
+        recs[arch] = dense_kernels(torch, cfg)
+        dense_fp32_parity(torch, cfg, device, card)
+        gc.collect()
+        if arch == "gemma3-12b":  # the pattern that differs
+            dense_graphs(torch, cfg, device, card)
+            gc.collect()
+        launches[arch] = dense_serve(torch, cfg, device, card)
+        gc.collect()
+    log(f"phase 12 wall {time.perf_counter() - t0:.1f} s")
+    return recs, launches
+
+
 def rotation_sweep(torch, cfg, device, card, values):
     """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
     the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
@@ -1572,6 +1820,7 @@ def main(argv=None) -> int:
     t10 = time.perf_counter()
     compared = phase_compare(torch, cfg, device, card, conserve_run)
     log(f"phase 10 wall {time.perf_counter() - t10:.1f} s")
+    dense = dense_records(*phase_dense(torch, device, card))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
@@ -1586,6 +1835,7 @@ def main(argv=None) -> int:
     for k in kernels[:2]:  # K1 and K2: their launches in each phase-10 run
         k["phase10_launches"] = {run: c[k["name"]]
                                  for run, c in compared.items()}
+        k["phase12"] = dense[k["name"]]  # and at each dense model's heads
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,8 +1,10 @@
 """Architecture config registry of the port: the paper's served model
-(qwen3-0.6b), rwkv6-3b and recurrentgemma-9b are ported so far.
-`get_config(arch)` returns the full published config and `get_reduced(arch)`
-the family-preserving smoke-test reduction. Every other architecture the JAX package knows raises
-`KeyError`."""
+(qwen3-0.6b), the reference's dense family (olmo-1b, stablelm-12b,
+nemotron-4-15b, gemma3-12b), rwkv6-3b and recurrentgemma-9b are ported so
+far. `get_config(arch)` returns the full published config and
+`get_reduced(arch)` the family-preserving smoke-test reduction. The four
+architectures the JAX package knows beyond these (`NOT_PORTED`: MLA, MoE,
+encoder-decoder and a vision frontend) raise `KeyError`."""
 from __future__ import annotations
 
 import importlib
@@ -12,13 +14,16 @@ from repro_torch.models.config import ModelConfig, reduced_config
 
 _MODULES = {
     "qwen3-0.6b": "qwen3_0p6b",
+    "olmo-1b": "olmo_1b",
+    "stablelm-12b": "stablelm_12b",
+    "nemotron-4-15b": "nemotron4_15b",
+    "gemma3-12b": "gemma3_12b",
     "rwkv6-3b": "rwkv6_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
 }
 
 # architectures of the reference package that this port does not serve yet
-NOT_PORTED = ("gemma3-12b", "stablelm-12b", "nemotron-4-15b", "olmo-1b",
-              "internvl2-26b", "deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
+NOT_PORTED = ("internvl2-26b", "deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
               "whisper-small")
 
 ALL_ARCHS: List[str] = list(_MODULES)

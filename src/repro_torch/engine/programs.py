@@ -25,6 +25,10 @@ What a replay needs, and what this module does about it:
   capture) counts nothing, as its seconds go to `compile_s`, not to a dt.
 * No fallback: a capture or a replay that fails raises, naming the
   program's key.
+* The cycle collector stays off during a capture. A dead replica's
+  programs wait in reference cycles, and collecting them mid-capture
+  destroys their graphs, which CUDA refuses while a stream captures and
+  answers by voiding the capture (ROADMAP queue 3, F12).
 
 A replica's programs share one graph memory pool: they never run at once,
 and each run's outputs are read before the next run starts.
@@ -32,6 +36,7 @@ and each run's outputs are read before the next run starts.
 from __future__ import annotations
 
 import contextlib
+import gc
 import time
 from typing import Callable, Dict, Iterator, List, Optional, Tuple
 
@@ -49,6 +54,20 @@ def uncounted() -> Iterator[None]:
         yield
     finally:
         ops.set_launch_counts(counts)
+
+
+@contextlib.contextmanager
+def no_cycle_collection() -> Iterator[None]:
+    """Keep Python's cycle collector off for the block (F12): nothing it
+    could free, a dead replica's CUDA graphs among them, is destroyed while
+    a stream captures."""
+    was_on = gc.isenabled()
+    gc.disable()
+    try:
+        yield
+    finally:
+        if was_on:
+            gc.enable()
 
 
 @contextlib.contextmanager
@@ -104,7 +123,7 @@ class Program:
         graph = torch.cuda.CUDAGraph()
         cur = torch.cuda.current_stream(self.device)
         stream.wait_stream(cur)
-        with uncounted():
+        with uncounted(), no_cycle_collection():
             before = ops.launch_counts()
             with torch.cuda.stream(stream):
                 graph.capture_begin(pool=pool)

@@ -35,10 +35,14 @@
 //   tail of the buffer is never fetched.
 // - The G query heads that share a KV head share every K/V row a block
 //   fetches: each byte is read once.
-// - 16-byte vector loads: a lane holds VEC contiguous elements of a row
-//   (8 bf16 or 4 fp32; 4 bf16 when G = 16, to bound the registers), LPR =
-//   D / VEC lanes cover a row, so a warp instruction loads 32 / LPR rows
-//   (two at D = 128 bf16). Each warp issues the K and V loads of UNROLL
+// - 16-byte vector loads: a row is cut into P = D / VEC pieces of VEC
+//   contiguous elements (8 bf16 or 4 fp32; 4 bf16 when G = 16, to bound the
+//   registers). LPR lanes cover a row, the power of two at or above P (at
+//   most 32), and a lane holds NV = ceil(P / LPR) pieces, LPR pieces apart;
+//   a warp instruction loads 32 / LPR rows (two at D = 128 bf16). Where P
+//   is not a power of two (D = 160: 20 bf16 or 40 fp32 pieces; D = 240: 30
+//   or 60) the lanes past the row's last piece idle in that load, so every
+//   key is still read once. Each warp issues the K and V loads of UNROLL
 //   such instructions before it uses any of them, so a block keeps up to
 //   64 rows in flight, and one online-softmax rescale covers them all.
 // - The lanes' and warps' partial softmax states are merged by shuffles and
@@ -58,6 +62,10 @@ constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+// the largest G x D instantiated: a lane holds G x D / 32 query and as many
+// accumulator elements at least, so past this they spill (G = 16 at D = 160
+// or 240 serves no configuration)
+constexpr int kMaxGD = 2048;
 
 template <int BYTES>
 struct Word;
@@ -97,17 +105,22 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
+constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
+
 template <typename T, int D, int G>
 struct DecodeShape {
-  // elements per lane: one 16-byte load, or 8 bytes of bf16 when G = 16
+  // elements per piece: one 16-byte load, or 8 bytes of bf16 when G = 16
   static constexpr int VEC = (16 / (int)sizeof(T)) < 64 / G
                                  ? 16 / (int)sizeof(T) : 64 / G;
-  static constexpr int LPR = D / VEC;   // lanes per row
+  static constexpr int P = D / VEC;     // pieces per row
+  static constexpr int LPR = P >= 32 ? 32 : pow2_at_least(P);  // lanes a row
+  static constexpr int NV = (P + LPR - 1) / LPR;  // pieces per lane
   static constexpr int RPW = 32 / LPR;  // rows per warp instruction
+  static constexpr int E = NV * VEC;    // elements per lane
   // row loads each warp has in flight per round: more when a lane's state
-  // (G x VEC query and accumulator elements) is small
-  static constexpr int UNROLL = G * VEC <= 16 ? 8 : (G * VEC <= 32 ? 4 : 2);
-  static_assert(LPR >= 1 && LPR <= 32 && 32 % LPR == 0, "row split");
+  // (G x E query and accumulator elements) is small
+  static constexpr int UNROLL = G * E <= 16 ? 8 : (G * E <= 32 ? 4 : 2);
+  static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "row split");
 };
 
 // One block per (split, KV head, sequence).
@@ -121,15 +134,25 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     int S, int Hkv, long long kv_stride_b, int split_len,
                     float scale_log2) {
   using Sh = DecodeShape<T, D, G>;
-  constexpr int VEC = Sh::VEC, LPR = Sh::LPR, RPW = Sh::RPW, U = Sh::UNROLL;
+  constexpr int VEC = Sh::VEC, P = Sh::P, LPR = Sh::LPR, NV = Sh::NV,
+                RPW = Sh::RPW, E = Sh::E, U = Sh::UNROLL;
+  constexpr bool kFull = NV * LPR == P;  // no lane idles in a row's load
   using W = typename Word<VEC * sizeof(T)>::type;
   const int split = blockIdx.x;
   const int n = blockIdx.y;  // KV head
   const int b = blockIdx.z;  // sequence
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int sub = lane / LPR;          // which of the warp's RPW rows
-  const int col = (lane % LPR) * VEC;  // first element of the lane
+  const int sub = lane / LPR;  // which of the warp's RPW rows
+  // the lane's pieces: lane % LPR + i * LPR, each VEC elements from col[i]
+  int col[NV];
+  bool has[NV];
+#pragma unroll
+  for (int i = 0; i < NV; ++i) {
+    const int pc = lane % LPR + i * LPR;
+    has[i] = kFull || pc < P;
+    col[i] = has[i] ? pc * VEC : 0;
+  }
   int len = lengths[b];
   len = len < 0 ? 0 : (len > S ? S : len);
   const int n_keys = len + (k_new != nullptr ? 1 : 0);
@@ -149,54 +172,72 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
     return;
   }
 
-  float qr[G][VEC];
+  // an idle piece holds zeros in q, so its products add nothing
+  float qr[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    float f[VEC];
-    widen<T, VEC>(*reinterpret_cast<const W*>(q + (head * G + g) * D + col),
-                  f);
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) qr[g][e] = f[e] * scale_log2;
+    for (int i = 0; i < NV; ++i) {
+      float f[VEC];
+      W w = W{};
+      if (has[i])
+        w = *reinterpret_cast<const W*>(q + (head * G + g) * D + col[i]);
+      widen<T, VEC>(w, f);
+#pragma unroll
+      for (int e = 0; e < VEC; ++e) qr[g][i * VEC + e] = f[e] * scale_log2;
+    }
   }
-  float m[G], l[G], acc[G][VEC];
+  float m[G], l[G], acc[G][E];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
-    for (int e = 0; e < VEC; ++e) acc[g][e] = 0.f;
+    for (int e = 0; e < E; ++e) acc[g][e] = 0.f;
   }
 
   const long long row = (long long)Hkv * D;  // stride between positions
-  const T* kb = k + b * kv_stride_b + (long long)n * D + col;
-  const T* vb = v + b * kv_stride_b + (long long)n * D + col;
+  const T* kb = k + b * kv_stride_b + (long long)n * D;
+  const T* vb = v + b * kv_stride_b + (long long)n * D;
+  const T* kn = k_new + head * D;
+  const T* vn = v_new + head * D;
   for (int base = j0; base < j1; base += kWarps * U * RPW) {
-    W kw[U], vw[U];
+    W kw[U][NV], vw[U][NV];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {  // issue every load of the round first
       const int j = base + (u * kWarps + warp) * RPW + sub;
       ok[u] = j < j1;
-      kw[u] = W{};
-      vw[u] = W{};
-      if (j < len) {
-        kw[u] = __ldg(reinterpret_cast<const W*>(kb + j * row));
-        vw[u] = __ldg(reinterpret_cast<const W*>(vb + j * row));
-      } else if (ok[u]) {  // j == len: the new token, one past the cache
-        kw[u] = __ldg(reinterpret_cast<const W*>(k_new + head * D + col));
-        vw[u] = __ldg(reinterpret_cast<const W*>(v_new + head * D + col));
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        kw[u][i] = W{};
+        vw[u][i] = W{};
+        if (!has[i]) continue;
+        if (j < len) {
+          kw[u][i] = __ldg(reinterpret_cast<const W*>(kb + j * row + col[i]));
+          vw[u][i] = __ldg(reinterpret_cast<const W*>(vb + j * row + col[i]));
+        } else if (ok[u]) {  // j == len: the new token, one past the cache
+          kw[u][i] = __ldg(reinterpret_cast<const W*>(kn + col[i]));
+          vw[u][i] = __ldg(reinterpret_cast<const W*>(vn + col[i]));
+        }
       }
     }
     float s[U][G];
 #pragma unroll
     for (int u = 0; u < U; ++u) {
-      float kf[VEC];
-      widen<T, VEC>(kw[u], kf);
+      float kf[E];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        float f[VEC];
+        widen<T, VEC>(kw[u][i], f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) kf[i * VEC + e] = f[e];
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         float x = 0.f;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) x += qr[g][e] * kf[e];
+        for (int e = 0; e < E; ++e) x += qr[g][e] * kf[e];
 #pragma unroll
         for (int off = LPR / 2; off > 0; off >>= 1)  // the lanes of one row
           x += __shfl_xor_sync(0xffffffffu, x, off);
@@ -213,19 +254,25 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       m[g] = mx;
       l[g] *= corr;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) acc[g][e] *= corr;
+      for (int e = 0; e < E; ++e) acc[g][e] *= corr;
     }
 #pragma unroll
     for (int u = 0; u < U; ++u) {
       if (!ok[u]) continue;
-      float vf[VEC];
-      widen<T, VEC>(vw[u], vf);
+      float vf[E];
+#pragma unroll
+      for (int i = 0; i < NV; ++i) {
+        float f[VEC];
+        widen<T, VEC>(vw[u][i], f);
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) vf[i * VEC + e] = f[e];
+      }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
         const float p = exp2f(s[u][g] - m[g]);
         l[g] += p;
 #pragma unroll
-        for (int e = 0; e < VEC; ++e) acc[g][e] += p * vf[e];
+        for (int e = 0; e < E; ++e) acc[g][e] += p * vf[e];
       }
     }
   }
@@ -241,7 +288,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const float c_self = exp2f(m[g] - mx), c_other = exp2f(mo - mx);
       l[g] = l[g] * c_self + lo * c_other;
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) {
+      for (int e = 0; e < E; ++e) {
         const float ao = __shfl_xor_sync(0xffffffffu, acc[g][e], off);
         acc[g][e] = acc[g][e] * c_self + ao * c_other;
       }
@@ -261,7 +308,12 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         sm_l[warp][g] = l[g];
       }
 #pragma unroll
-      for (int e = 0; e < VEC; ++e) sm_acc[warp][g][col + e] = acc[g][e];
+      for (int i = 0; i < NV; ++i) {
+        if (!has[i]) continue;
+#pragma unroll
+        for (int e = 0; e < VEC; ++e)
+          sm_acc[warp][g][col[i] + e] = acc[g][i * VEC + e];
+      }
     }
   }
   __syncthreads();
@@ -352,10 +404,12 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
   switch (G) {
 #define REPRO_G(g)                                                          \
   case g:                                                                   \
-    return launch<T, D, g>(q, k, v, k_new, v_new, lengths, out, scratch, B, \
-                           S, Hkv, kv_stride_b, n_split, split_len, scale,  \
-                           stream);
-    REPRO_G(1) REPRO_G(2) REPRO_G(4) REPRO_G(8) REPRO_G(16)
+    if constexpr (g * D <= kMaxGD)                                          \
+      return launch<T, D, g>(q, k, v, k_new, v_new, lengths, out, scratch,  \
+                             B, S, Hkv, kv_stride_b, n_split, split_len,    \
+                             scale, stream);                                \
+    break;
+    REPRO_G(1) REPRO_G(2) REPRO_G(4) REPRO_G(6) REPRO_G(8) REPRO_G(16)
 #undef REPRO_G
   }
   return cudaErrorInvalidValue;
@@ -373,7 +427,7 @@ cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
     return dispatch_g<T, d>(G, q, k, v, k_new, v_new, lengths, out, scratch, \
                             B, S, Hkv, kv_stride_b, n_split, split_len,      \
                             scale, stream);
-    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128)
+    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128) REPRO_D(160) REPRO_D(240)
 #undef REPRO_D
   }
   return cudaErrorInvalidValue;

@@ -25,8 +25,9 @@
 // bf16, the served path — a FlashAttention-2-style kernel on the tensor
 // cores: one block of 4 warps per (64-row query tile, query head, sequence),
 // each warp owning 16 query rows. The Q tile is copied to shared memory once
-// and kept in registers as `mma` A-fragments. 64-key K and V tiles stream
-// through a double buffer in shared memory with `cp.async` (16-byte copies,
+// and, up to D = 160, kept in registers as `mma` A-fragments. 64-key K and V
+// tiles stream through a double buffer in shared memory with `cp.async`
+// (16-byte copies,
 // zero-filled past S), so tile j+1 loads while tile j computes. Q·Kᵀ and P·V
 // are `mma.sync.m16n8k16` bf16 products with fp32 accumulators, fed through
 // `ldmatrix` (V through `ldmatrix.trans`); shared-memory rows are padded by
@@ -38,13 +39,18 @@
 // tiles wholly above the diagonal or before the window are never loaded. The
 // query tiles run in reverse, so the heaviest causal tiles start first. The
 // output tile is staged through shared memory and written with 16-byte
-// stores. Not done yet: `wgmma` on warpgroups and TMA loads with `mbarrier`s
-// (the full tensor-core rate), and a persistent grid.
+// stores. At D = 240 (gemma3-12b's global layers) a warp's O accumulators
+// alone take 120 registers, so Q stays in shared memory and is read per
+// k-step, and the K/V tiles hold 32 keys (`MmaShape`); the double-buffered
+// tiles and Q take 107,520 B of shared memory at D = 160 (stablelm-12b) and
+// 95,232 B at D = 240, so two blocks fit an SM, as at D = 128.
+// Not done yet: `wgmma` on warpgroups and TMA loads with `mbarrier`s (the
+// full tensor-core rate), and a persistent grid.
 //
 // fp32, the parity path: the CUDA-core kernel of the first port, one block
-// per (64-row query tile, head, sequence), two threads per query row, K/V
-// tiles of 32 rows widened in shared memory, products in fp32 (TF32 would
-// miss the fp32 tolerance of 2e-5).
+// per (64-row query tile, head, sequence), two threads per query row (four
+// past D = 128), K/V tiles of 32 rows (16 at D = 240) widened in shared
+// memory, products in fp32 (TF32 would miss the fp32 tolerance of 2e-5).
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -59,35 +65,46 @@ constexpr float kNegInf = -1e30f;
 // fp32: the CUDA-core kernel
 // --------------------------------------------------------------------------
 constexpr int kF32BlockQ = 64;   // query rows per block
-constexpr int kF32BlockK = 32;   // keys per shared-memory tile
-constexpr int kF32Threads = 2 * kF32BlockQ;
+
+// threads per query row and keys per shared-memory tile: 2 threads and 32
+// keys up to D = 128; past it 4 threads (a thread's query and accumulator
+// elements stay at D / 4, so nothing spills) and, at D = 240, 16 keys (two
+// fp32 tiles of 32 x 240 would pass the 48 KB of static shared memory)
+template <int D>
+struct F32Shape {
+  static constexpr int TPR = D <= 128 ? 2 : 4;
+  static constexpr int BK = D <= 160 ? 32 : 16;
+  static constexpr int THREADS = TPR * kF32BlockQ;
+};
 
 template <int D>
-__global__ void __launch_bounds__(kF32Threads)
+__global__ void __launch_bounds__(F32Shape<D>::THREADS)
 prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                    const float* __restrict__ v, float* __restrict__ out,
                    int S, int H, int Hkv, int window, float scale) {
-  constexpr int HALF = D / 2;  // elements d = 2 * i + half of this thread
+  constexpr int TPR = F32Shape<D>::TPR, BK = F32Shape<D>::BK;
+  constexpr int THREADS = F32Shape<D>::THREADS;
+  constexpr int PART = D / TPR;  // elements d = TPR * i + part of a thread
   const int q_lo = blockIdx.x * kF32BlockQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (H / Hkv);
-  const int r = threadIdx.x >> 1;
-  const int half = threadIdx.x & 1;
+  const int r = threadIdx.x / TPR;
+  const int part = threadIdx.x % TPR;
   const int qpos = q_lo + r;
   const bool row_ok = qpos < S;
 
-  __shared__ float ks[kF32BlockK][D];
-  __shared__ float vs[kF32BlockK][D];
+  __shared__ float ks[BK][D];
+  __shared__ float vs[BK][D];
 
   const long long q_row = (long long)H * D;
   const long long kv_row = (long long)Hkv * D;
-  float qr[HALF], acc[HALF];
+  float qr[PART], acc[PART];
   const float* qp = q + ((long long)b * S + (row_ok ? qpos : 0)) * q_row +
                     (long long)h * D;
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    qr[i] = row_ok ? qp[2 * i + half] : 0.f;
+  for (int i = 0; i < PART; ++i) {
+    qr[i] = row_ok ? qp[TPR * i + part] : 0.f;
     acc[i] = 0.f;
   }
   float m = kNegInf, l = 0.f;
@@ -97,13 +114,13 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int k_end = q_hi + 1;
   int k_begin = 0;
   if (window > 0) k_begin = max(0, q_lo - window + 1);
-  k_begin = (k_begin / kF32BlockK) * kF32BlockK;
+  k_begin = (k_begin / BK) * BK;
 
   const float* kb = k + (long long)b * S * kv_row + (long long)hk * D;
   const float* vb = v + (long long)b * S * kv_row + (long long)hk * D;
-  for (int k0 = k_begin; k0 < k_end; k0 += kF32BlockK) {
+  for (int k0 = k_begin; k0 < k_end; k0 += BK) {
     __syncthreads();  // the previous tile is no longer read
-    for (int idx = threadIdx.x; idx < kF32BlockK * D; idx += kF32Threads) {
+    for (int idx = threadIdx.x; idx < BK * D; idx += THREADS) {
       const int j = idx / D;
       const int d = idx % D;
       const int kp = k0 + j;
@@ -117,30 +134,32 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
     __syncthreads();
 
-    float s[kF32BlockK];
+    float s[BK];
     float tile_max = kNegInf;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
-      float part = 0.f;
+    for (int j = 0; j < BK; ++j) {
+      float dot = 0.f;
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) part += qr[i] * ks[j][2 * i + half];
-      part += __shfl_xor_sync(0xffffffffu, part, 1);
+      for (int i = 0; i < PART; ++i) dot += qr[i] * ks[j][TPR * i + part];
+#pragma unroll
+      for (int off = 1; off < TPR; off <<= 1)  // the threads of one row
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
       const int kp = k0 + j;
       const bool ok = kp <= qpos && (window == 0 || kp > qpos - window);
-      s[j] = ok ? part * scale : kNegInf;
+      s[j] = ok ? dot * scale : kNegInf;
       tile_max = fmaxf(tile_max, s[j]);
     }
     const float m_new = fmaxf(m, tile_max);
     const float corr = expf(m - m_new);
     float psum = 0.f;
 #pragma unroll
-    for (int i = 0; i < HALF; ++i) acc[i] *= corr;
+    for (int i = 0; i < PART; ++i) acc[i] *= corr;
 #pragma unroll
-    for (int j = 0; j < kF32BlockK; ++j) {
+    for (int j = 0; j < BK; ++j) {
       const float p = s[j] > 0.5f * kNegInf ? expf(s[j] - m_new) : 0.f;
       psum += p;
 #pragma unroll
-      for (int i = 0; i < HALF; ++i) acc[i] += p * vs[j][2 * i + half];
+      for (int i = 0; i < PART; ++i) acc[i] += p * vs[j][TPR * i + part];
     }
     l = l * corr + psum;
     m = m_new;
@@ -150,14 +169,13 @@ prefill_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* op = out + ((long long)b * S + qpos) * q_row + (long long)h * D;
   const float inv = 1.f / fmaxf(l, 1e-20f);
 #pragma unroll
-  for (int i = 0; i < HALF; ++i) op[2 * i + half] = acc[i] * inv;
+  for (int i = 0; i < PART; ++i) op[TPR * i + part] = acc[i] * inv;
 }
 
 // --------------------------------------------------------------------------
 // bf16: the tensor-core kernel
 // --------------------------------------------------------------------------
 constexpr int kBlockQ = 64;  // query rows per block, 16 per warp
-constexpr int kBlockK = 64;  // keys per K/V tile
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kPad = 8;      // bf16 elements of padding per shared row
@@ -212,14 +230,23 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&t);
 }
 
+// Up to D = 160 a warp keeps its Q tile in registers as A-fragments and
+// streams 64-key tiles (ptxas: 182 registers at D = 128, 244 at D = 160, no
+// spill). At D = 240 the registers would not hold Q's 15 x 4 and O's 30 x 4
+// beside the scores: Q is read from shared memory at each k-step instead
+// (QREG false) and the key tiles shrink to 32 (BK), which also halves the
+// scores' and P's fragments (234 registers, no spill).
 template <int D>
 struct MmaShape {
+  static constexpr bool QREG = D <= 160;      // Q fragments in registers
+  static constexpr int BK = D <= 160 ? 64 : 32;  // keys per K/V tile
   static constexpr int LD = D + kPad;         // shared row stride, elements
   static constexpr int CPR = D / 8;           // 16-byte chunks per row
   static constexpr int KC = D / 16;           // k-steps of Q·Kᵀ
   static constexpr int NT = D / 8;            // n-tiles of the output
   static constexpr int SMEM =                 // Q + 2 x (K, V) tiles
-      (kBlockQ + 4 * kBlockK) * LD * (int)sizeof(__nv_bfloat16);
+      (kBlockQ + 4 * BK) * LD * (int)sizeof(__nv_bfloat16);
+  static_assert(D % 16 == 0, "k-steps of 16");
 };
 
 template <int D>
@@ -231,10 +258,12 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                    int window, float scale_log2) {
   using Sh = MmaShape<D>;
   constexpr int LD = Sh::LD, CPR = Sh::CPR, KC = Sh::KC, NT = Sh::NT;
+  constexpr int BK = Sh::BK;
+  constexpr bool QREG = Sh::QREG;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* sq = reinterpret_cast<__nv_bfloat16*>(smem_raw);
-  __nv_bfloat16* sk = sq + kBlockQ * LD;       // [2][kBlockK][LD]
-  __nv_bfloat16* sv = sk + 2 * kBlockK * LD;   // [2][kBlockK][LD]
+  __nv_bfloat16* sk = sq + kBlockQ * LD;       // [2][BK][LD]
+  __nv_bfloat16* sv = sk + 2 * BK * LD;   // [2][BK][LD]
 
   const int q_lo = (gridDim.x - 1 - blockIdx.x) * kBlockQ;  // heaviest first
   const int h = blockIdx.y;
@@ -255,8 +284,8 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
   // keys any row of this tile can see: causal end, window start
   const int q_hi = min(q_lo + kBlockQ, S) - 1;
   int k_begin = window > 0 ? max(0, q_lo - window + 1) : 0;
-  k_begin = (k_begin / kBlockK) * kBlockK;
-  const int n_tiles = (q_hi + 1 - k_begin + kBlockK - 1) / kBlockK;
+  k_begin = (k_begin / BK) * BK;
+  const int n_tiles = (q_hi + 1 - k_begin + BK - 1) / BK;
 
   for (int c = tid; c < kBlockQ * CPR; c += kThreads) {
     const int r = c / CPR, cc = c % CPR;
@@ -265,10 +294,10 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
                qb + (long long)(pos < S ? pos : 0) * q_row + cc * 8, pos < S);
   }
   auto load_kv = [&](int tile, int buf) {
-    const int k0 = k_begin + tile * kBlockK;
-    __nv_bfloat16* dk = sk + buf * kBlockK * LD;
-    __nv_bfloat16* dv = sv + buf * kBlockK * LD;
-    for (int c = tid; c < kBlockK * CPR; c += kThreads) {
+    const int k0 = k_begin + tile * BK;
+    __nv_bfloat16* dk = sk + buf * BK * LD;
+    __nv_bfloat16* dv = sv + buf * BK * LD;
+    for (int c = tid; c < BK * CPR; c += kThreads) {
       const int r = c / CPR, cc = c % CPR;
       const int pos = k0 + r;
       const long long off = (long long)(pos < S ? pos : 0) * kv_row + cc * 8;
@@ -276,10 +305,15 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async16(dv + r * LD + cc * 8, vb + off, pos < S);
     }
   };
+  // the warp's 16 query rows, k-step kc, as an A-fragment
+  auto load_q = [&](uint32_t(&a)[4], int kc) {
+    ldmatrix_x4(a, sq + (warp * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) *
+                            LD + kc * 16 + (lane >> 4) * 8);
+  };
   load_kv(0, 0);
   cp_async_commit();  // group 0: the Q tile and K/V tile 0
 
-  uint32_t qf[KC][4];
+  uint32_t qf[QREG ? KC : 1][4];
   float o[NT][4];
 #pragma unroll
   for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
@@ -297,38 +331,44 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
       cp_async_wait<0>();
     }
     __syncthreads();
-    if (t == 0) {
+    if constexpr (QREG) {
+      if (t == 0) {
 #pragma unroll
-      for (int kc = 0; kc < KC; ++kc)
-        ldmatrix_x4(qf[kc], sq + (warp * 16 + (lane & 7) +
-                                  ((lane >> 3) & 1) * 8) * LD +
-                                kc * 16 + (lane >> 4) * 8);
+        for (int kc = 0; kc < KC; ++kc) load_q(qf[kc], kc);
+      }
     }
-    const __nv_bfloat16* kt = sk + (t & 1) * kBlockK * LD;
-    const __nv_bfloat16* vt = sv + (t & 1) * kBlockK * LD;
+    const __nv_bfloat16* kt = sk + (t & 1) * BK * LD;
+    const __nv_bfloat16* vt = sv + (t & 1) * BK * LD;
 
     // S = Q·Kᵀ: 8 n-tiles of 8 keys
-    float s[kBlockK / 8][4];
+    float s[BK / 8][4];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+    for (int n = 0; n < BK / 8; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
     for (int kc = 0; kc < KC; ++kc) {
+      uint32_t a[4];
+      if constexpr (QREG) {
 #pragma unroll
-      for (int np = 0; np < kBlockK / 16; ++np) {
+        for (int e = 0; e < 4; ++e) a[e] = qf[kc][e];
+      } else {
+        load_q(a, kc);
+      }
+#pragma unroll
+      for (int np = 0; np < BK / 16; ++np) {
         uint32_t bk[4];
         ldmatrix_x4(bk, kt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * LD +
                             kc * 16 + ((lane >> 3) & 1) * 8);
-        mma_bf16(s[2 * np], qf[kc], bk[0], bk[1]);
-        mma_bf16(s[2 * np + 1], qf[kc], bk[2], bk[3]);
+        mma_bf16(s[2 * np], a, bk[0], bk[1]);
+        mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
       }
     }
 
     // scale to base-2 units; mask only the tiles that need it
-    const int k0 = k_begin + t * kBlockK;
-    const bool need_mask = k0 + kBlockK - 1 > q_lo || k0 + kBlockK > S ||
+    const int k0 = k_begin + t * BK;
+    const bool need_mask = k0 + BK - 1 > q_lo || k0 + BK > S ||
                            (window > 0 && k0 <= q_lo + kBlockQ - 1 - window);
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+    for (int n = 0; n < BK / 8; ++n) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float x = s[n][e] * scale_log2;
@@ -345,7 +385,7 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     // online softmax on the fragments: rows g (e = 0, 1) and g + 8 (e = 2, 3)
     float mx_lo = m_lo, mx_hi = m_hi;
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+    for (int n = 0; n < BK / 8; ++n) {
       mx_lo = fmaxf(mx_lo, fmaxf(s[n][0], s[n][1]));
       mx_hi = fmaxf(mx_hi, fmaxf(s[n][2], s[n][3]));
     }
@@ -369,9 +409,9 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
     }
     // P in bf16 as the A-fragments of P·V: k-step kc covers n-tiles 2kc and
     // 2kc + 1 (the accumulator layout of S is the operand layout of P)
-    uint32_t pa[kBlockK / 16][4];
+    uint32_t pa[BK / 16][4];
 #pragma unroll
-    for (int n = 0; n < kBlockK / 8; ++n) {
+    for (int n = 0; n < BK / 8; ++n) {
       float p[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
@@ -386,7 +426,7 @@ prefill_mma_kernel(const __nv_bfloat16* __restrict__ q,
 
     // O += P·V: V through ldmatrix.trans, 16 output columns per load
 #pragma unroll
-    for (int kc = 0; kc < kBlockK / 16; ++kc) {
+    for (int kc = 0; kc < BK / 16; ++kc) {
 #pragma unroll
       for (int dp = 0; dp < NT / 2; ++dp) {
         uint32_t bv[4];
@@ -433,7 +473,7 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* out,
                        int B, int S, int H, int Hkv, int window, float scale,
                        cudaStream_t stream) {
   dim3 grid((S + kF32BlockQ - 1) / kF32BlockQ, H, B);
-  prefill_f32_kernel<D><<<grid, kF32Threads, 0, stream>>>(
+  prefill_f32_kernel<D><<<grid, F32Shape<D>::THREADS, 0, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(out), S, H, Hkv,
       window, scale);
@@ -496,7 +536,8 @@ extern "C" int repro_prefill_attention(const void* q, const void* k,
   case 1000 + d:                                                            \
     return (int)launch_mma<d>(q, k, v, out, B, S, H, Hkv, window, scale,   \
                               st);
-    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128)
+    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128) REPRO_D(160)
+    REPRO_D(240)
 #undef REPRO_D
   }
   return (int)cudaErrorInvalidValue;

@@ -33,8 +33,12 @@ import torch
 
 from . import _build
 
-HEAD_DIMS = (16, 32, 64, 128)
-GROUPS = (1, 2, 4, 8, 16)
+# the head dims and group sizes K1 is instantiated for (csrc/decode_attention.cu),
+# every pair with G * D <= MAX_GD: D = 160 serves stablelm-12b (G = 4), 240
+# gemma3-12b's global layers (G = 2), G = 6 nemotron-4-15b (D = 128)
+HEAD_DIMS = (16, 32, 64, 128, 160, 240)
+GROUPS = (1, 2, 4, 6, 8, 16)
+MAX_GD = 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 # about four blocks of K1 per SM of the H100 (132 SMs): the split kernel's
@@ -44,10 +48,13 @@ TARGET_BLOCKS = 4 * 132
 
 def key_chunk(D: int) -> int:
     """The shortest split of K1, in keys: the rows one block loads per
-    round of its loop with 16-byte loads (4 warps x 8 loads x 32 / (D / 8)
-    rows), 64 at D = 128. A shorter split costs a combine and saves no
-    round."""
-    return 8192 // D
+    round of its loop at its deepest unroll (4 warps x 8 loads x the rows
+    a warp instruction covers), 64 at D = 128 and 32 at D = 160 and 240. A
+    shorter split costs a combine and saves no round."""
+    # lanes that load one bf16 row: its D / 8 pieces of 16 bytes rounded up
+    # to a power of two, at most 32 (a row of 20 or 30 leaves lanes idle)
+    lanes = min(32, 1 << max(0, (D // 8 - 1).bit_length()))
+    return 4 * 8 * (32 // lanes)
 
 
 @functools.lru_cache(maxsize=None)
@@ -120,8 +127,10 @@ def flash_decode_attention(q, k, v, lengths, k_new: Optional[torch.Tensor]
     """Launch K1 on CUDA tensors. q (B, H, D) contiguous; k, v (B, S, Hkv, D)
     with contiguous inner dims and equal strides; lengths (B,) int32;
     k_new, v_new (B, Hkv, D) contiguous or both None. float32 or bfloat16,
-    head_dim in HEAD_DIMS, H / Hkv in GROUPS, every tensor 16-byte aligned
-    (the kernel loads 16 bytes at a time). Returns (B, H, D)."""
+    head_dim D in HEAD_DIMS = (16, 32, 64, 128, 160, 240), G = H / Hkv in
+    GROUPS = (1, 2, 4, 6, 8, 16) with G * D <= MAX_GD (2048), every tensor
+    16-byte aligned (the kernel loads 16 bytes at a time). Raises on any
+    other shape. Returns (B, H, D)."""
     tensors = [q, k, v] + ([k_new, v_new] if k_new is not None else [])
     if any(t.device.type != "cuda" or t.device != q.device for t in tensors):
         raise ValueError("flash_decode_attention takes CUDA tensors on one "
@@ -142,6 +151,9 @@ def flash_decode_attention(q, k, v, lengths, k_new: Optional[torch.Tensor]
         raise ValueError(f"head_dim {D} not in {HEAD_DIMS}")
     if H % Hkv or H // Hkv not in GROUPS:
         raise ValueError(f"H={H}, Hkv={Hkv}: H/Hkv must be one of {GROUPS}")
+    if (H // Hkv) * D > MAX_GD:
+        raise ValueError(f"G={H // Hkv} x head_dim {D} > {MAX_GD}: not "
+                         "instantiated")
     _check_kv("k", k, B, S, Hkv, D)
     _check_kv("v", v, B, S, Hkv, D)
     if k.stride() != v.stride():

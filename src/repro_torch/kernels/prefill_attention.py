@@ -25,7 +25,9 @@ import torch
 from . import _build
 from .ref import causal_attention_ref
 
-HEAD_DIMS = (16, 32, 64, 128)
+# the head dims K2 is instantiated for (csrc/prefill_attention.cu): 160 serves
+# stablelm-12b, 240 gemma3-12b's global layers; any G = H / Hkv
+HEAD_DIMS = (16, 32, 64, 128, 160, 240)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
 
@@ -54,7 +56,9 @@ def _fn():
 def flash_prefill_attention(q, k, v, *, window: int = 0):
     """Launch K2 on CUDA tensors. q (B, S, H, D), k, v (B, S, Hkv, D), all
     contiguous and 16-byte aligned, float32 or bfloat16 (bf16 runs on the
-    tensor cores), head_dim in HEAD_DIMS. Returns (B, S, H, D)."""
+    tensor cores), head_dim D in HEAD_DIMS = (16, 32, 64, 128, 160, 240),
+    any H a multiple of Hkv. Raises on any other shape. Returns
+    (B, S, H, D)."""
     if any(t.device.type != "cuda" or t.device != q.device for t in (q, k, v)):
         raise ValueError("flash_prefill_attention takes CUDA tensors on one "
                          "device; CPU tensors go to prefill_attention_plain")

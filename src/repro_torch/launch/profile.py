@@ -2,7 +2,8 @@
 with the replica's CUDA graphs and without them.
 
     python -m repro_torch.launch.profile
-           [--arch qwen3-0.6b|rwkv6-3b|recurrentgemma-9b]
+           [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|
+                   gemma3-12b|rwkv6-3b|recurrentgemma-9b]
            [--slots 16] [--ctx 300] [--steps 16] [--prefill 512]
 
 Builds one decode replica of `--arch` (default qwen3-0.6b; full width,

@@ -12,7 +12,8 @@ control), so the launcher — like the schedulers — cannot tell the two
 scales apart.
 
   python -m repro_torch.launch.serve (--engine | --sim)
-         [--arch qwen3-0.6b|rwkv6-3b|recurrentgemma-9b]
+         [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|gemma3-12b|
+                 rwkv6-3b|recurrentgemma-9b]
          [--device cuda|cpu] [--slots N] [--n-conversations N]
          [--scheduler NAME] [--gateway] [--scenario NAME] [--seed S]
 
@@ -20,8 +21,8 @@ scales apart.
 `collocated`), each a `ReplicaEngine` of the reduced `--arch` (default
 qwen3-0.6b) with seeded weights and slots of max_ctx 1024. A replica
 refuses max_ctx > window for a model with local attention, and the reduced
-recurrentgemma-9b's window is 64: the launcher widens a reduced window below
-max_ctx to max_ctx, and says so. `--device` defaults to cuda and fails
+recurrentgemma-9b's and gemma3-12b's windows are 64: the launcher widens a
+reduced window below max_ctx to max_ctx, and says so. `--device` defaults to cuda and fails
 without a card. `--sim` runs `paper_deployment(scheduler)`.
 (`chip_smoke.py` serves the models at full width.)
 

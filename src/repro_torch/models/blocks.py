@@ -1,8 +1,9 @@
 """Per-layer block: (norm -> sequence mixer -> residual) + (norm -> FFN ->
 residual), specialised by the layer's kind. The ported kinds:
 
-* global and local (sliding-window) GQA attention + the gated MLP (`attn`,
-  `mlp`); its cache is the new tokens' K/V, which the engine appends;
+* global and local (sliding-window) GQA attention + the MLP, gated or not
+  (`attn`, `mlp`); its cache is the new tokens' K/V, which the engine
+  appends;
 * RWKV6 time-mix + channel-mix (`tmix`, `cmix`); its cache is a fixed-size
   state — `s` (the WKV state), `shift` (the time-mix's last *normed* input
   token) and `cshift` (the channel-mix's) — which the engine replaces;

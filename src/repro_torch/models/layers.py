@@ -4,10 +4,11 @@ Each layer with weights is an `nn.Module` holding its parameters in the JAX
 package's layouts (a projection is `x @ w` with w of shape (d_in, d_out)),
 and the math is a plain function over tensors, so converted weights drop in
 leaf by leaf. Details that a stock torch module gets wrong are kept: RMSNorm
-scales by (1 + scale), LayerNorm has a scale and no bias and runs in fp32,
-the gated MLP's gelu is the tanh approximation (`jax.nn.gelu`'s default,
-not torch's), RoPE rotates split halves, and the embedding multiplies
-by sqrt(d_model) (for every family) while the unembedding does not.
+scales by (1 + scale), LayerNorm has a scale and no bias and runs in fp32
+(OLMo's `nonparametric_ln` has neither), gelu is the tanh approximation
+(`jax.nn.gelu`'s default, not torch's), RoPE rotates split halves, and the
+embedding multiplies by sqrt(d_model) (for every family) while the
+unembedding does not.
 Only what the ported configurations use is here (`transformer.check_ported`
 names the rest).
 """
@@ -71,13 +72,19 @@ def rmsnorm(x, scale, eps: float = 1e-6):
 
 
 def layernorm(x, scale, eps: float = 1e-5):
-    """Scale-only LayerNorm, computed in fp32 and cast back."""
+    """Scale-only LayerNorm (no scale either when `scale` is None),
+    computed in fp32 and cast back."""
     dt = x.dtype
     x = x.float()
     mu = x.mean(dim=-1, keepdim=True)
     var = (x - mu).square().mean(dim=-1, keepdim=True)
     x = (x - mu) * torch.rsqrt(var + eps)
-    return (x * scale.float()).to(dt)
+    return (x if scale is None else x * scale.float()).to(dt)
+
+
+def nonparametric_ln(x, eps: float = 1e-5):
+    """OLMo's LayerNorm without a learned scale or bias."""
+    return layernorm(x, None, eps)
 
 
 class RMSNorm(nn.Module):
@@ -98,9 +105,20 @@ class LayerNorm(nn.Module):
         return layernorm(x, self.scale)
 
 
+class NonparametricLN(nn.Module):
+    """A norm with no parameter (the reference's `norm_skeleton` is {})."""
+
+    def __init__(self, cfg, device):
+        super().__init__()
+
+    def forward(self, x):
+        return nonparametric_ln(x)
+
+
 def make_norm(cfg, device) -> nn.Module:
     """The reference's `apply_norm` dispatch, as a module per cfg.norm."""
-    return {"rmsnorm": RMSNorm, "layernorm": LayerNorm}[cfg.norm](cfg, device)
+    return {"rmsnorm": RMSNorm, "layernorm": LayerNorm,
+            "nonparametric_ln": NonparametricLN}[cfg.norm](cfg, device)
 
 
 # --------------------------------------------------------------------------- #
@@ -111,21 +129,33 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
-ACTIVATIONS = {"silu": F.silu, "gelu": gelu}
+def squared_relu(x):
+    r = F.relu(x)
+    return r * r
+
+
+ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "squared_relu": squared_relu}
 
 
 class MLP(nn.Module):
+    """wi, wo, and wg when cfg.gated_mlp."""
+
     def __init__(self, cfg, device):
         super().__init__()
         d, f, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
         self.wi = param((d, f), dt, device)
-        self.wg = param((d, f), dt, device)
+        if cfg.gated_mlp:
+            self.wg = param((d, f), dt, device)
         self.wo = param((f, d), dt, device)
 
 
 def apply_mlp(mlp: MLP, cfg, x):
-    """Gated MLP: act(x @ wg) * (x @ wi) @ wo, act per cfg.activation."""
-    return (ACTIVATIONS[cfg.activation](x @ mlp.wg) * (x @ mlp.wi)) @ mlp.wo
+    """Gated: act(x @ wg) * (x @ wi) @ wo; not gated: act(x @ wi) @ wo; act
+    per cfg.activation."""
+    act = ACTIVATIONS[cfg.activation]
+    h = x @ mlp.wi
+    h = act(x @ mlp.wg) * h if cfg.gated_mlp else act(h)
+    return h @ mlp.wo
 
 
 # --------------------------------------------------------------------------- #
@@ -164,6 +194,7 @@ def unembed(embed_w, h, unembed_w=None):
     return h @ unembed_w
 
 
-__all__ = ["param", "init_params", "rmsnorm", "layernorm", "RMSNorm",
-           "LayerNorm", "make_norm", "gelu", "ACTIVATIONS", "MLP",
-           "apply_mlp", "rope_freqs", "apply_rope", "embed", "unembed"]
+__all__ = ["param", "init_params", "rmsnorm", "layernorm", "nonparametric_ln",
+           "RMSNorm", "LayerNorm", "NonparametricLN", "make_norm", "gelu",
+           "squared_relu", "ACTIVATIONS", "MLP", "apply_mlp", "rope_freqs",
+           "apply_rope", "embed", "unembed"]

@@ -28,36 +28,44 @@ from .layers import embed, make_norm, param, unembed
 
 
 HYBRID_PATTERN = (RGLRU, RGLRU, ATTN_LOCAL)
+# the reference's dense family: global GQA (olmo-1b, stablelm-12b,
+# nemotron-4-15b, qwen3-0.6b) and gemma3's five local layers to one global
+DENSE_PATTERNS = ((ATTN_GLOBAL,), (ATTN_LOCAL,) * 5 + (ATTN_GLOBAL,))
+DENSE_NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
+DENSE_ACTIVATIONS = ("silu", "squared_relu", "gelu")
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not serve
-    yet. It serves three families: dense global-GQA decoders with RMSNorm,
-    SwiGLU and tied embeddings (qwen3-0.6b); attention-free RWKV6 with
-    LayerNorm and untied embeddings (rwkv6-3b), whose FFN is the
-    channel-mix; and the Griffin hybrid — the pattern (RG-LRU, RG-LRU, local
-    attention) with RMSNorm, a gelu gated MLP, untied embeddings and no
-    qk-norm (recurrentgemma-9b)."""
+    yet, naming what is missing. It serves three families: dense GQA
+    decoders — the pattern (global) or (local x 5, global), any of the
+    norms rmsnorm, layernorm and nonparametric_ln, the activations silu,
+    squared_relu and gelu, a gated MLP or not, tied embeddings or not,
+    qk-norm or not (qwen3-0.6b, olmo-1b, stablelm-12b, nemotron-4-15b,
+    gemma3-12b); attention-free RWKV6 with LayerNorm and untied embeddings
+    (rwkv6-3b), whose FFN is the channel-mix; and the Griffin hybrid — the
+    pattern (RG-LRU, RG-LRU, local attention) with RMSNorm, a gelu gated
+    MLP, untied embeddings and no qk-norm (recurrentgemma-9b). Not yet: MLA,
+    MoE, encoder-decoder and frontends."""
     if cfg.block_pattern == (RWKV6,):
-        family = (("norm", cfg.norm, "layernorm"),
-                  ("tie_embeddings", cfg.tie_embeddings, False))
+        family = (("norm", cfg.norm, ("layernorm",)),
+                  ("tie_embeddings", cfg.tie_embeddings, (False,)))
     elif cfg.block_pattern == HYBRID_PATTERN:
-        family = (("norm", cfg.norm, "rmsnorm"),
-                  ("activation", cfg.activation, "gelu"),
-                  ("gated_mlp", cfg.gated_mlp, True),
-                  ("tie_embeddings", cfg.tie_embeddings, False),
-                  ("qk_norm", cfg.qk_norm, False))
+        family = (("norm", cfg.norm, ("rmsnorm",)),
+                  ("activation", cfg.activation, ("gelu",)),
+                  ("gated_mlp", cfg.gated_mlp, (True,)),
+                  ("tie_embeddings", cfg.tie_embeddings, (False,)),
+                  ("qk_norm", cfg.qk_norm, (False,)))
     else:
-        family = (("block_pattern", cfg.block_pattern, (ATTN_GLOBAL,)),
-                  ("norm", cfg.norm, "rmsnorm"),
-                  ("activation", cfg.activation, "silu"),
-                  ("gated_mlp", cfg.gated_mlp, True),
-                  ("tie_embeddings", cfg.tie_embeddings, True))
-    common = (("n_experts", cfg.n_experts, 0),
-              ("is_encoder_decoder", cfg.is_encoder_decoder, False),
-              ("frontend", cfg.frontend, "none"))
+        family = (("block_pattern", cfg.block_pattern, DENSE_PATTERNS),
+                  ("norm", cfg.norm, DENSE_NORMS),
+                  ("activation", cfg.activation, DENSE_ACTIVATIONS))
+    common = (("n_experts (MoE)", cfg.n_experts, (0,)),
+              ("kv_lora_rank (MLA)", cfg.kv_lora_rank, (0,)),
+              ("is_encoder_decoder", cfg.is_encoder_decoder, (False,)),
+              ("frontend", cfg.frontend, ("none",)))
     missing = [f"{what} {got!r}" for what, got, want in family + common
-               if got != want]
+               if got not in want]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: not ported to repro_torch yet: "

@@ -25,6 +25,7 @@ from repro_torch.engine import ReplicaEngine, bucket_len  # noqa: E402
 from repro_torch.engine.kvcache import (fold_prefill, leaves,  # noqa: E402
                                         prefix_hash)
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -12,14 +12,16 @@ reads; it splits each (sequence, KV head)'s keys across blocks, planned
 from the shapes alone, and merges the splits in a second pass — so its
 cases cover rows with no key, len == S, idle slots longer than the trimmed
 read, B = 1 at S = 1024 (many splits), B = 16 at S = 64 (one split, no
-combine), every group size at D = 128 and 16, and a CUDA-graph replay
+combine), every group size at D = 128 and 16, the dense family's heads (D =
+160 and 240, whose rows leave lanes idle, and G = 6) and a CUDA-graph replay
 against the eager call (not done yet: a persistent grid). K2
 (`csrc/prefill_attention.cu`, replacing the Pallas
 `flash_prefill_attention`) is bound by bytes up to S of ~900 at
 qwen3-0.6b's heads; in bf16 it runs on the tensor cores (`mma.sync` fed by
 `ldmatrix`, K/V tiles streamed by `cp.async`), so its cases cover ragged S
-around the 64-row tiles, window 96, G in {1, 2, 8} and D in {16, 64, 128}
-(not done yet: `wgmma` and TMA); fp32 keeps the CUDA-core kernel. K3
+around the 64-row tiles, window 96, G in {1, 2, 6, 8} and D in {16, 64,
+128, 160, 240} (D = 240 in 32-key tiles; not done yet: `wgmma` and TMA);
+fp32 keeps the CUDA-core kernel. K3
 (`csrc/wkv6.cu`) is chunk-parallel: chunks of 8 tokens run at once, one
 warp each, the state is carried over them, and a block takes its chunks in
 passes; it is held against the step recurrence within 5e-5 of the
@@ -32,9 +34,10 @@ blocked scan of up to 16 segments a tile; it is held against the step recurrence
 within 1e-5 (fp32) and 1e-5 of the result's magnitude (bf16 inputs,
 widened exactly) at its segment and tile edges, W not a multiple of 32,
 and every mix of input dtypes. Each launch is counted, a CUDA-graph replay
-of K1, K2, K3 and K4 equals the eager call bit for bit, and the reduced
+of K1, K2, K3 and K4 equals the eager call bit for bit, the reduced
 models served through the kernels give the same greedy tokens as the torch
-paths. The replica's programs (`engine/programs.py`, one CUDA graph per
+paths, and nemotron-4-15b at full width and two layers serves through them.
+The replica's programs (`engine/programs.py`, one CUDA graph per
 bucket key): graph against eager for each family in fp32 — tokens and
 caches byte-identical through a ragged chunk, a slot joining, an append and
 a bucket captured after a kill and rejoin — the launches each replay
@@ -84,7 +87,12 @@ def _rand(dev, dtype, seed, shape):
                                      # G = 1, 2, 4, 8, 16 at D = 128 and 16
                                      (8, 8, 128), (8, 2, 128), (16, 2, 128),
                                      (16, 1, 128), (4, 2, 16), (8, 2, 16),
-                                     (8, 1, 16), (16, 1, 16)])
+                                     (8, 1, 16), (16, 1, 16),
+                                     # the dense family's heads: stablelm,
+                                     # nemotron (G = 6), gemma3, olmo
+                                     (32, 8, 160), (48, 8, 128),
+                                     (16, 8, 240), (16, 16, 128),
+                                     (12, 2, 160), (16, 2, 240)])
 def test_cuda_decode_kernel_matches_plain(cuda, dtype, H, Hkv, D):
     """Ragged lengths 1, S, and longer than the trimmed read; the cache is a
     strided view of a longer buffer; the new token rides as a second
@@ -183,7 +191,13 @@ def test_cuda_decode_kernel_graph_replay_equals_eager(cuda):
     (1024, 16, 8, 128, 0),
     # window 96, G = 1 / 2 / 8, D = 16 / 64 / 128
     (512, 16, 8, 128, 96), (200, 8, 8, 16, 96), (300, 8, 8, 64, 0),
-    (256, 16, 2, 64, 0), (130, 8, 1, 16, 0), (65, 16, 2, 128, 96)])
+    (256, 16, 2, 64, 0), (130, 8, 1, 16, 0), (65, 16, 2, 128, 96),
+    # the dense family's heads (stablelm D = 160, nemotron G = 6, gemma3
+    # D = 240 in 32-key tiles, olmo G = 1), ragged around their tiles
+    (200, 32, 8, 160, 0), (512, 32, 8, 160, 0), (65, 32, 8, 160, 96),
+    (1, 32, 8, 160, 0), (200, 48, 8, 128, 0), (1024, 48, 8, 128, 0),
+    (200, 16, 8, 240, 0), (1024, 16, 8, 240, 0), (31, 16, 8, 240, 0),
+    (33, 16, 8, 240, 0), (300, 16, 8, 240, 96), (256, 16, 16, 128, 0)])
 def test_cuda_prefill_kernel_matches_plain(cuda, dtype, S, H, Hkv, D, window):
     q = _rand(cuda, dtype, 0, (2, S, H, D))
     k, v = (_rand(cuda, dtype, i, (2, S, Hkv, D)) for i in (1, 2))
@@ -199,9 +213,19 @@ def test_cuda_prefill_kernel_matches_plain(cuda, dtype, S, H, Hkv, D, window):
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 48, device=cuda)  # head_dim 48
     k = torch.zeros(1, 8, 4, 48, device=cuda)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
-        flash_decode_attention(q, k, k, torch.ones(1, dtype=torch.int32,
-                                                   device=cuda))
+        flash_decode_attention(q, k, k, one)
+    q = torch.zeros(1, 5, 128, device=cuda)  # G = 5: not instantiated yet
+    k = torch.zeros(1, 8, 1, 128, device=cuda)
+    with pytest.raises(ValueError, match="H/Hkv"):
+        flash_decode_attention(q, k, k, one)
+    q = torch.zeros(1, 16, 240, device=cuda)  # G = 16 at D = 240
+    k = torch.zeros(1, 8, 1, 240, device=cuda)
+    with pytest.raises(ValueError, match="not instantiated"):
+        flash_decode_attention(q, k, k, one)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_prefill_attention(*(torch.zeros(1, 8, 2, 48, device=cuda),) * 3)
     with pytest.raises(ValueError, match="dtypes"):
         flash_prefill_attention(*(torch.zeros(1, 8, 2, 16, device=cuda,
                                               dtype=torch.float16),) * 3)
@@ -522,12 +546,12 @@ GPU_ROLES = {"conserve": ("prefill", "decode", "decode"),
              "collocated": ("mixed", "mixed", "mixed")}
 
 
-def _gpu_serve(device, system, server_cls=None, server_kw=None,
+def _gpu_serve(device, system, server_cls=None, server_kw=None, cfg=None,
                **sched_kw):
     from repro_torch.core import make_scheduler
     from repro_torch.engine import EngineServer
     from repro_torch.traces import TraceConfig, generate_trace
-    cfg = get_reduced("qwen3-0.6b")
+    cfg = cfg or get_reduced("qwen3-0.6b")
     params = build_model(cfg).init(0, device)
     reps = [ReplicaEngine(cfg, params, n_slots=8, max_ctx=512, replica_id=i,
                           role=r, attention_impl="cuda")
@@ -572,6 +596,24 @@ def test_baselines_serve_through_the_kernels(cuda, system):
         assert srv.n_transfers == len(recs) + 2 * remote > base.n_transfers
     assert base.n_transfers == len(base_recs)
     assert streams == base_streams
+
+
+@pytest.mark.gpu
+def test_nemotron_full_width_reduced_depth_serves_through_the_kernels(cuda):
+    """nemotron-4-15b at its published widths — 48 query heads over 8 KV
+    heads of 128 (K1 at G = 6), d_ff 24,576 without a gate, a vocabulary of
+    256,000 — cut to 2 layers, bf16, under ConServe with strict accounting:
+    every conversation completes with one KV transfer, K1 launches a
+    multiple of the layers, K2 once a layer for each turn-1 prefill."""
+    from repro_torch.configs import get_config
+    cfg = get_config("nemotron-4-15b").scaled(n_layers=2)
+    srv, recs, streams = _gpu_serve(cuda, "conserve", cfg=cfg)
+    counts = ops.launch_counts()
+    assert srv.n_transfers == len(recs) == 6
+    assert counts["decode_attention"] % cfg.n_layers == 0
+    assert counts["prefill_attention"] == cfg.n_layers * len(recs)
+    assert counts["wkv6"] == counts["rglru"] == 0
+    assert all(len(v) > 0 for v in streams.values())
 
 
 @pytest.mark.gpu
@@ -622,7 +664,8 @@ def test_fp32_failure_replay_is_byte_identical(cuda, rejoin):
 # the replica's compiled programs: one CUDA graph per bucket key
 # --------------------------------------------------------------------------- #
 GRAPH_ARCHS = {"qwen3-0.6b": {}, "rwkv6-3b": {},
-               "recurrentgemma-9b": {"window": 256}}
+               "recurrentgemma-9b": {"window": 256}, "stablelm-12b": {},
+               "gemma3-12b": {"window": 256}}
 
 
 def _caches(eng):
@@ -743,6 +786,31 @@ def test_capture_leaves_the_cache_byte_identical(cuda, arch):
     eng.warmup_prefill(lengths=(32, 128), ctx_limits=(64, 256))
     assert all(p.graph is not None for p in eng.programs().values())
     assert all(torch.equal(a, b) for a, b in zip(before, _caches(eng)))
+
+
+@pytest.mark.gpu
+def test_capture_runs_with_the_cycle_collector_off(cuda):
+    """F12: a dead replica's programs wait in reference cycles, and the
+    cycle collector destroying their graphs while a stream captures voids
+    the capture (seen on the card: "operation not permitted when stream
+    is capturing (function reset)"). The collector is off during every
+    capture and on again after it; the warm-up pass runs with it on."""
+    import gc
+    eng = _graph_engine(cuda, "qwen3-0.6b")
+    seen = []
+    step = eng.model.decode_step
+
+    def spy(*a, **kw):
+        seen.append((torch.cuda.is_current_stream_capturing(),
+                     gc.isenabled()))
+        return step(*a, **kw)
+
+    eng.model.decode_step = spy
+    eng.warmup_decode(chunks=(1, 8), ctx_limits=(64,))
+    assert (False, True) in seen and (True, False) in seen
+    assert not any(capturing and on for capturing, on in seen)
+    assert gc.isenabled()
+    assert all(p.graph is not None for p in eng.programs().values())
 
 
 @pytest.mark.gpu

@@ -33,6 +33,7 @@ from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         params_to_numpy)
 from repro_torch.models.model import merge_decode_cache  # noqa: E402
 from repro_torch.models.transformer import LM, layer_places  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 LOGIT_TOL = 1e-4
 ATT_TOL = 1e-5

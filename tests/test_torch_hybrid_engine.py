@@ -35,6 +35,7 @@ from repro_torch.engine import EngineServer, ReplicaEngine  # noqa: E402
 from repro_torch.engine.kvcache import leaves, prefix_hash  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.traces import TraceConfig, generate_trace  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 ARCH = "recurrentgemma-9b"
 WINDOW = 256

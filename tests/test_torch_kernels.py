@@ -27,6 +27,7 @@ from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, flash_decode_attention, plan_decode_splits)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
     flash_prefill_attention, prefill_attention_plain)
+from torch_support import one_thread  # noqa: E402,F401
 
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
 DT = {"float32": (jnp.float32, torch.float32),

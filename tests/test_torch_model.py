@@ -24,6 +24,7 @@ from repro_torch.models import build_model, layers as tlayers  # noqa: E402
 from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
                                         params_to_numpy)
 from repro_torch.models.model import merge_decode_cache  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 LOGIT_TOL = 1e-4
 IMPLS = ("torch", "cuda")
@@ -72,7 +73,7 @@ def test_config_matches_reference():
 
 def test_unported_arch_raises_keyerror():
     with pytest.raises(KeyError, match="not ported"):
-        get_config("gemma3-12b")
+        get_config("deepseek-v2-lite-16b")
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
 

@@ -36,6 +36,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels import ref as jref  # noqa: E402
 from repro.models import recurrent as jrec  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 WKV_RTOL = 5e-5   # tests/test_kernels.py::test_wkv6_sweep
 RGLRU_TOL = 1e-5  # tests/test_kernels.py::test_rglru_sweep

@@ -31,6 +31,7 @@ from repro_torch.kernels import ops, ref  # noqa: E402
 from repro_torch.kernels.rglru import rglru_cuda, rglru_plain  # noqa: E402
 from repro_torch.models import recurrent as trec  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 TOL = 1e-5  # tests/test_kernels.py::test_rglru_sweep
 IMPLS = ("torch", "cuda")

@@ -38,6 +38,7 @@ from repro_torch.models.convert import (params_from_numpy,  # noqa: E402
 from repro_torch.models.model import merge_decode_cache  # noqa: E402
 from repro_torch.models.recurrent import wkv6_chunked  # noqa: E402
 from repro_torch.models.transformer import LM  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 WKV_TOL = 5e-5
 LOGIT_TOL = 1e-4

@@ -29,6 +29,7 @@ from repro_torch.engine import EngineServer, ReplicaEngine  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
 from repro_torch.traces import TraceConfig, generate_trace  # noqa: E402
+from torch_support import one_thread  # noqa: E402,F401
 
 GOLDEN = Path(__file__).parent / "golden" / "decode_golden_trace.json"
 SMALL = dict(seed=3, first_input_median=40, first_input_sigma=0.3,
