@@ -8,13 +8,15 @@ Drives the port's served paths — ConServe over `ReplicaEngine`,
 rwkv6-3b and recurrentgemma-9b at full width — then qwen3-0.6b under the
 paper's baselines, through failures and live through the gateway, then the
 reference's dense family (olmo-1b, stablelm-12b, nemotron-4-15b, gemma3-12b)
-at full width, and holds each hand-written CUDA kernel of those paths
-against its plain PyTorch version on the card. Every replica runs its decode
-chunks, turn-1 prefills and appends through its programs' CUDA graphs (the
-default), so the launch counts of the served phases count replays (each
-replay adds what its capture recorded), and each served phase prints its
-compile_s (kernel builds and program captures, never in a dt), the programs
-it captured, their graph pools and peak memory beside TTFET p95 and TBT.
+at full width, then its MoE models (deepseek-v2-lite-16b with MLA,
+llama4-scout-17b-a16e at the depth that fits), and holds each hand-written
+CUDA kernel of those paths against its plain PyTorch version on the card.
+Every replica runs its decode chunks, turn-1 prefills and appends through
+its programs' CUDA graphs (the default), so the launch counts of the served
+phases count replays (each replay adds what its capture recorded), and each
+served phase prints its compile_s (kernel builds and program captures, never
+in a dt), the programs it captured, their graph pools and peak memory beside
+TTFET p95 and TBT.
 Phases, each raising on failure:
 
   1. the card: CUDA present, `nvidia-smi` name and power limit;
@@ -113,20 +115,49 @@ Phases, each raising on failure:
      layers, K2's the global layers times the 8 turn-1 prefills, K3 and
      K4 at 0; (d) gemma3-12b, whose pattern differs: phase 11's graph
      against eager check in fp32, at the depth that holds the eager pass's
-     three cache copies (printed). Prints its wall time.
+     three cache copies (printed). Prints its wall time;
+ 13. MLA and MoE, each model freed before the next: (a) K1 and K2 at
+     llama4-scout's heads (40 / 8 x 128, G = 5) against their plain
+     versions as in phase 12 (a), K2 at S = 256 and 512; deepseek-v2-lite-
+     16b in fp32 (TF32 off) at the depth that holds its weights beside
+     phase 11's cache copies (printed), (b) at cf = E/K (dropless, a
+     check-only cut, as `reduced_config` makes it): in every layer, on the
+     same inputs, the absorbed MLA decode of 8 tokens within 1e-3 of
+     max(1, max|out|) of the expanded form; a 150-token prefill and 8
+     greedy decode steps against one expanded prefill of all 158 tokens —
+     tokens equal, or within phase 10's tie band where one differs, the
+     logits by position printed beside their noise floor with every
+     routing difference and its margin — K1-K4 at 0; and (d) at the
+     published cf
+     1.25, phase 11's graphs against eager, byte-identical (capacity drops
+     inside the graphs); (c) deepseek in bf16 at full depth and cf 1.25,
+     served as 5b — 8 of 8, one transfer each of 31,104 B x its first
+     input's tokens, K1-K4 at 0; llama4-scout-17b-a16e at the depth that
+     fits (printed; 107.77 B parameters do not fit one card), (e) bf16
+     served as 5b — K1's launches the layers x the graphed decode steps
+     (counted from the replays), K2's the layers x 8 turn-1 prefills, one
+     transfer each of kv_bytes_per_token x the tokens — and (f) fp32
+     parity between the impls as phase 12 (b), with each router's smallest
+     top-1 margin and every routing flip between the impls printed. Prints
+     its wall time.
 
 Each model is freed before the next is loaded. The last four lines of
 standard output are the script's wall time, the card's name and power
 limit, one JSON object with a record per kernel (K1's and K2's with their
-phase-10 launches and, under "phase12", each dense model's served
-launches and bf16 records at its heads), and `{"ok": true, "device":
-{...}}`. Without a card, or without the repository around it, it
-exits non-zero before printing any result.
+phase-10 launches and, under "phase12" and "phase13", each dense and MoE
+model's served launches and, at its heads, the bf16 records), and `{"ok":
+true, "device": {...}}`. Without a card, or without the repository around
+it, it exits non-zero before printing any result.
 
     python3 chip_smoke.py --kernels-only
 
 runs phases 1-3 alone and ends with the card line and the kernels' JSON
 line (no ok line): the quick way to time the kernels of a tree.
+
+    python3 chip_smoke.py --phase13
+
+runs phases 1-2 and phase 13 alone and ends with the card line and phase
+13's records (no ok line).
 
     python3 chip_smoke.py --rotation-sweep 4,8,16,32
 
@@ -1512,12 +1543,12 @@ def n_global(cfg) -> int:
     return sum(k == "attn_global" for k in cfg.layer_kinds())
 
 
-def dense_kernels(torch, cfg):
+def dense_kernels(torch, cfg, k2_lengths=(200, 256, 512, 1024)):
     """(a) K1 and K2 at the model's (H, Hkv, D) in fp32 and bf16 against
     their plain versions, as phase 3 at qwen's: K1 over 16 slots of a 1024
-    buffer through the 64, 256 and 1024 buckets, K2 at S = 200, 256, 512 and
-    1024. Returns the bf16 records at the served shapes (K1 at the 256
-    bucket, K2 at S = 256 and 512)."""
+    buffer through the 64, 256 and 1024 buckets, K2 at S in `k2_lengths`.
+    Returns the bf16 records at the served shapes (K1 at the 256 bucket, K2
+    at S = 256 and 512)."""
     H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -1532,7 +1563,7 @@ def dense_kernels(torch, cfg):
                 f"max|err| {r['max_abs_err']:.3e}  {_times(r)}")
             if dtype == "bfloat16" and S == 256:
                 recs["decode_attention"]["bf16 B=16 S=256"] = r
-        for S in (200, 256, 512, 1024):
+        for S in k2_lengths:
             r = check_prefill(torch, dtype, 1, S, H, Hkv, D, 0)
             log(f"  K2 {dtype:8s} B=1 S={S:4d}: max|err| "
                 f"{r['max_abs_err']:.3e}  {_times(r)}")
@@ -1576,7 +1607,9 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
     logits within DENSE_LOGIT_RTOL x max(1, max|logit|), K1 and K2 each
     launched once per global layer — then greedy tokens of a ReplicaEngine
     pair over 8 decode steps, equal. Depth is cut only if the weights do
-    not fit (printed)."""
+    not fit (printed). In a MoE model each router's choices in the prefill
+    and the decode step are recorded under both impls and compared
+    (`routing_report`)."""
     import numpy as np
     from repro_torch.engine import ReplicaEngine
     from repro_torch.kernels import ops
@@ -1591,19 +1624,25 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
     prompt = np.random.RandomState(3).randint(0, cfg.vocab_size,
                                               DENSE_PROMPT)
     toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
-    logits, caches = {}, {}
+    logits, caches, routes = {}, {}, {}
     ops.reset_launch_counts()
     for impl in ("cuda", "torch"):
-        logits[impl], caches[impl] = model.prefill(params, toks,
-                                                   attention_impl=impl)
+        with recording_routers() as routes[impl]:
+            logits[impl], caches[impl] = model.prefill(params, toks,
+                                                       attention_impl=impl)
     pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
     nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
     cache = {k: {kk: {n: torch.nn.functional.pad(
         t, (0, 0, 0, 0, 0, 64)) for n, t in vv.items()}
         for kk, vv in v.items()} for k, v in caches["torch"].items()}
-    dl = {impl: model.decode_step(params, nxt, cache, pos, kv_lens=pos,
-                                  attention_impl=impl)[0]
-          for impl in ("cuda", "torch")}
+    dl = {}
+    for impl in ("cuda", "torch"):
+        with recording_routers() as rec:
+            dl[impl] = model.decode_step(params, nxt, cache, pos,
+                                         kv_lens=pos, attention_impl=impl)[0]
+        routes[impl] += rec
+    if cfg.n_experts:
+        routing_report(cfg, routes)
     counts = ops.launch_counts()
     want = {"decode_attention": n_global(cfg),
             "prefill_attention": n_global(cfg), "wkv6": 0, "rglru": 0}
@@ -1725,6 +1764,339 @@ def phase_dense(torch, device, card):
     return recs, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 13: MLA and MoE — deepseek-v2-lite-16b and llama4-scout-17b-a16e
+# --------------------------------------------------------------------------- #
+MOE_ARCHS = ("deepseek-v2-lite-16b", "llama4-scout-17b-a16e")
+# fp32, MLA's absorbed decode against its expanded prefill in each layer on
+# the same inputs, relative to max(1, max|out|): the two forms sum the same
+# fp32 products in another order (the latent scores against per-head keys)
+MLA_LOGIT_RTOL = 1e-3
+MLA_PROMPT = 150   # (b): prefill, then MLA_STEPS decode steps
+MLA_STEPS = 8
+ALL_KERNELS = ("decode_attention", "prefill_attention", "wkv6", "rglru")
+
+
+class recording_routers:
+    """While open, every `apply_moe` call of the model records its router's
+    choices: per call (in layer order) the chosen experts (N, K) and the
+    gap between the K-th and the (K+1)-th probability (N,) of each token,
+    into the list it yields. Off, the model is untouched."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.models import blocks
+        self.rec, self.orig = [], blocks.apply_moe
+
+        def spy(m, cfg, x, *a, **kw):
+            K = cfg.top_k
+            probs = torch.softmax(x.reshape(-1, x.shape[-1]).float()
+                                  @ m.router, dim=-1)
+            top = torch.topk(probs, min(K + 1, cfg.n_experts), dim=-1)
+            gap = (top.values[:, K - 1] - top.values[:, K]
+                   if K < cfg.n_experts else top.values[:, -1])
+            self.rec.append((top.indices[:, :K].cpu(), gap.cpu()))
+            return self.orig(m, cfg, x, *a, **kw)
+        blocks.apply_moe = spy
+        return self.rec
+
+    def __exit__(self, *exc):
+        from repro_torch.models import blocks
+        blocks.apply_moe = self.orig
+        return False
+
+
+def routing_report(cfg, routes):
+    """Print each router's smallest top-K margin (the gap between its K-th
+    and (K+1)-th expert, over the tokens of the prefill and the decode
+    step, under the torch impl) and every token whose experts differ
+    between the impls, with its margin: a flip is reported, not hidden."""
+    flips = []
+    margins = []
+    for i, ((ec, _), (et, gt)) in enumerate(zip(routes["cuda"],
+                                                routes["torch"])):
+        margins.append(float(gt.min()))
+        for j in (ec != et).any(-1).nonzero().flatten().tolist():
+            flips.append((i, j, float(gt[j])))
+    n = len(routes["torch"])
+    log(f"  routers ({n} calls: the prefill's, then the decode step's, by "
+        f"layer): smallest top-{cfg.top_k} margin by call "
+        + " ".join(f"{m:.2e}" for m in margins)
+        + f"; smallest of all {min(margins):.3e}")
+    log(f"  routing flips between impls: {len(flips)}"
+        + "".join(f"; call {i} token {j} (margin {g:.3e})"
+                  for i, j, g in flips[:20]))
+
+
+def mla_layers(torch, cfg, params, seq, device):
+    """(b), layer by layer on the same inputs: in each layer, the hidden
+    state of all of `seq` entering it (the expanded run's), the expanded
+    prefill's attention output at the last MLA_STEPS positions against the
+    absorbed decode of each of those tokens over the cache of the tokens
+    before it. Returns (the largest error relative to max(1, max|out|), by
+    layer)."""
+    from repro_torch.models.attention import mla_decode, mla_prefill
+    from repro_torch.models.blocks import block_prefill
+    from repro_torch.models.layers import embed
+    errs = []
+    with torch.no_grad():
+        h = embed(params.embed.w, cfg, seq).to(cfg.torch_dtype)
+        for block in params.blocks:
+            x = block.ln1(h)
+            out, c = mla_prefill(block.attn, cfg, x, 0)
+            worst = 0.0
+            for p in range(MLA_PROMPT, MLA_PROMPT + MLA_STEPS):
+                pos = torch.tensor([p], dtype=torch.int32, device=device)
+                got, _ = mla_decode(block.attn, cfg, x[:, p:p + 1], pos,
+                                    {n: t[:, :p] for n, t in c.items()})
+                want = out[:, p:p + 1]
+                worst = max(worst, max_err(got, want)
+                            / max(1.0, float(want.abs().max())))
+            errs.append(worst)
+            h, _ = block_prefill(block, cfg, h, 0)
+    return errs
+
+
+def mla_absorbed_vs_expanded(torch, cfg, params, device):
+    """(b) fp32, TF32 off, cf = E/K (dropless, a check-only cut as
+    `reduced_config` makes it, so that grouping cannot change routing):
+    a 150-token prefill and 8 greedy decode steps through the absorbed
+    MLA decode, against one prefill of all 158 tokens through the
+    expanded form, K1-K4 launched 0 times (MLA is torch ops under
+    "cuda"). Gated: in every layer, on the same inputs, the absorbed
+    decode within MLA_LOGIT_RTOL x max(1, max|out|) of the expanded form
+    (`mla_layers`); and the rollout's greedy tokens equal the expanded
+    run's, or where one differs both tokens lie within twice that
+    position's logit difference of the top logit (phase 10's rule). The
+    rollout's logits are printed by position beside their noise floor —
+    the prefill's position, where both runs take the expanded form and
+    differ only in the products' shapes (150 or 158 rows) — and every
+    token whose experts differ between the two runs, with its margin: a
+    randomly initialised model this deep carries fp32 rounding, and the
+    routing's discrete choices, a long way."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.models.model import merge_decode_cache
+    from repro_torch.models.transformer import lm_hidden, lm_logits
+    cfg = cfg.scaled(capacity_factor=cfg.n_experts / cfg.top_k)
+    log(f"  (b) {cfg.name} fp32 ({cfg.n_layers} layers), cf "
+        f"{cfg.capacity_factor:.4f} = E/K (dropless, check only): "
+        f"{MLA_PROMPT}-token prefill + {MLA_STEPS} absorbed decode steps "
+        f"against one expanded prefill of {MLA_PROMPT + MLA_STEPS}")
+    model = build_model(cfg)
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size, MLA_PROMPT)
+    ops.reset_launch_counts()
+    with recording_routers() as split:
+        logits, caches = model.prefill(
+            params, torch.as_tensor(prompt, dtype=torch.int32,
+                                    device=device)[None],
+            attention_impl="cuda")
+        first = logits
+        nxt = logits[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+        fed, dec = [], []
+        for i in range(MLA_STEPS):
+            fed.append(int(nxt))
+            pos = torch.tensor([MLA_PROMPT + i], dtype=torch.int32,
+                               device=device)
+            lg, up = model.decode_step(params, nxt, caches, pos,
+                                       attention_impl="cuda")
+            caches = merge_decode_cache(caches, up)
+            dec.append(lg[0])
+            nxt = lg[:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    del caches
+    seq = torch.as_tensor(np.concatenate([prompt, fed]), dtype=torch.int32,
+                          device=device)[None]
+    with torch.no_grad(), recording_routers() as whole:
+        h, _ = lm_hidden(params, cfg, seq, attention_impl="cuda")
+        full = lm_logits(params, h[0, MLA_PROMPT - 1:])  # (1 + 8, V)
+    dec = torch.stack([first[0]] + dec)
+    counts = ops.launch_counts()
+    if any(counts.values()):
+        raise AssertionError(f"an MLA model launched {counts}")
+    layer_err = mla_layers(torch, cfg, params, seq, device)
+    log(f"  by layer, absorbed decode against the expanded form on the same "
+        f"inputs, max|err| / max(1, max|out|): largest {max(layer_err):.3e}"
+        f" (tol {MLA_LOGIT_RTOL}); " + " ".join(f"{e:.1e}"
+                                             for e in layer_err))
+    # each layer's router, token by token: the split run's calls are the
+    # prefill's L, then L for each decode step
+    L = cfg.n_layers
+    flips = []
+    for layer in range(L):
+        e_full, gap = whole[layer]
+        e_split = torch.cat([split[layer][0]] + [
+            split[L * (1 + i) + layer][0] for i in range(MLA_STEPS)])
+        for t in (e_split != e_full).any(-1).nonzero().flatten().tolist():
+            flips.append((layer, t, float(gap[t])))
+    V = cfg.vocab_size
+    t_dec = dec[:, :V].argmax(-1).tolist()
+    t_full = full[:, :V].argmax(-1).tolist()
+    per_pos = [max_err(a, b) for a, b in zip(dec, full)]
+    scale = max(1.0, float(full.abs().max()))
+    log(f"  rollout: logits max|err| by position (the first is the "
+        f"prefill's, both runs expanded: the noise floor) "
+        + " ".join(f"{e:.2e}" for e in per_pos)
+        + f", max|logit| {scale:.3f}; launches {counts}")
+    log(f"  routing differences between the split and the whole run: "
+        f"{len(flips)}" + "".join(f"; layer {la} token {t} (margin "
+                                  f"{g:.3e})" for la, t, g in flips[:20]))
+    log(f"  greedy tokens, absorbed decode {t_dec}")
+    log(f"  greedy tokens, expanded prefill {t_full}")
+    for i, (a, b) in enumerate(zip(t_dec, t_full)):
+        if a != b:
+            top = float(full[i, :V].max())
+            gaps = (top - float(full[i, a]), top - float(full[i, b]))
+            log(f"  position {MLA_PROMPT - 1 + i}: tokens {a} / {b}, "
+                f"{gaps[0]:.3e} / {gaps[1]:.3e} below the top logit (band "
+                f"{2 * per_pos[i]:.3e})")
+            if max(gaps) > 2 * per_pos[i]:
+                raise AssertionError(f"{cfg.name}: a rollout token differs "
+                                     "outside its position's tie band")
+    if not max(layer_err) < MLA_LOGIT_RTOL:
+        raise AssertionError(f"{cfg.name}: the absorbed MLA decode differs "
+                             "from the expanded form")
+
+
+def deepseek_fp32(torch, cfg, device, card):
+    """(b) and (d) on one set of fp32 weights (TF32 off), the depth cut to
+    what holds them beside phase 11's three 16-slot, 1024-row cache copies
+    (printed): (b) the absorbed decode against the expanded prefill, (d)
+    the CUDA graphs against the same bodies run eagerly at the published
+    cf (capacity drops inside the graphs), byte-identical."""
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.scaled(dtype="float32")
+    cache_layer = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4 * 1024 \
+        * GRAPH_SLOTS
+    cfg = fit_depth(torch, cfg, per_layer_extra=4 * cache_layer)
+    params = build_model(cfg).init(0, device)
+    mla_absorbed_vs_expanded(torch, cfg, params, device)
+    phase_graphs(torch, cfg, params, card, "13 (d)")
+    del params
+    torch.cuda.empty_cache()
+
+
+class counting_replays:
+    """While open, tally what the replicas' CUDA graphs ran: decode steps
+    (a decode program's replay runs its n_steps), turn-1 prefills and
+    appends, by program kind."""
+
+    def __enter__(self):
+        from repro_torch.engine import programs
+        self.orig = programs.Program.replay
+        tally = self.tally = {"decode": 0, "prefill": 0, "append": 0}
+        orig = self.orig
+
+        def replay(prog, bound):
+            orig(prog, bound)
+            tally[prog.key[0]] += prog.steps
+        programs.Program.replay = replay
+        return tally
+
+    def __exit__(self, *exc):
+        from repro_torch.engine import programs
+        programs.Program.replay = self.orig
+        return False
+
+
+def moe_serve(torch, cfg, device, card, tag):
+    """(c) / (e) bf16 under ConServe through the CUDA graphs, strict
+    accounting (`serve_and_count`): 8 of 8 conversations, one KV transfer
+    each of kv_bytes_per_token x the first input's tokens. deepseek (MLA):
+    K1-K4 at 0. llama4-scout (global GQA at G = 5): K1's launches the
+    layers x the graphed decode steps, K2's the layers x 8 turn-1
+    prefills."""
+    from repro_torch.launch.serve import engine_trace
+    from repro_torch.models import build_model
+    n_conv = 8
+    cache_layer = 3 * GRAPH_SLOTS * 1024 * (
+        cfg.kv_bytes_per_token() // cfg.n_layers)
+    cfg = fit_depth(torch, cfg, per_layer_extra=cache_layer)
+    L = n_global(cfg)
+    log(f"  ({tag}) {cfg.name} full width {cfg.dtype} ({cfg.n_layers} "
+        f"layers, cf {cfg.capacity_factor}), EngineServer + ConServe, "
+        f"strict accounting")
+    params = build_model(cfg).init(0, device)
+    path = ("decode_attention", "prefill_attention") if L else ()
+    with counting_replays() as tally:
+        launches, run = serve_and_count(
+            torch, cfg, params, card, path, f"({tag}) ",
+            absent=tuple(k for k in ALL_KERNELS if k not in path),
+            n_conversations=n_conv)
+    srv = run["srv"]
+    tokens = sum(c.first_input_len for c in engine_trace(n_conv))
+    per_tok = cfg.kv_bytes_per_token()
+    log(f"  graphs ran {tally['decode']} decode steps, {tally['prefill']} "
+        f"turn-1 prefills and {tally['append']} appends; {srv.n_transfers} "
+        f"transfers of {srv.transfer_bytes:.0f} B = {per_tok} B x "
+        f"{srv.transfer_bytes / per_tok:.0f} tokens (first inputs: "
+        f"{tokens} tokens)")
+    if srv.n_transfers != n_conv or srv.transfer_bytes != per_tok * tokens:
+        raise AssertionError(f"{srv.n_transfers} transfers of "
+                             f"{srv.transfer_bytes} B, not {n_conv} of "
+                             f"{per_tok} B x {tokens} tokens")
+    k1 = run["launches"]["decode_attention"]
+    k2 = run["launches"]["prefill_attention"]
+    if (k1, k2) != (L * tally["decode"], L * n_conv):
+        raise AssertionError(f"K1 {k1} / K2 {k2} launches, not {L} layers x "
+                             f"{tally['decode']} graphed decode steps / "
+                             f"{L} x {n_conv} turn-1 prefills")
+    del params, run, srv
+    torch.cuda.empty_cache()
+    return {"decode_attention": k1, "prefill_attention": k2,
+            "layers": cfg.n_layers, "decode_steps": tally["decode"]}
+
+
+def moe_records(recs, launches):
+    """Phase 13's numbers for the kernels' JSON line: for K1 and K2, each
+    MoE model's served launches, and at llama4-scout's heads (G = 5) the
+    bf16 records at the served shapes."""
+    return {name: {arch: dict(launches=launches[arch][name],
+                              **(recs[name] if arch ==
+                                 "llama4-scout-17b-a16e" else {}))
+                   for arch in MOE_ARCHS}
+            for name in PATH_KERNELS}
+
+
+def phase_moe(torch, device, card):
+    """Phase 13: (a) K1 and K2 at llama4-scout's heads (40 / 8 x 128, G =
+    5); deepseek-v2-lite-16b's (b) absorbed MLA decode against the
+    expanded prefill and (d) graphs against eager, in fp32, (c) served in
+    bf16 at full depth; llama4-scout-17b-a16e (e) served in bf16 and (f)
+    fp32 impl parity, each at the depth that fits. Returns (llama4-scout's
+    bf16 kernel records, {arch: served launches})."""
+    import gc
+
+    from repro_torch.configs import get_config
+    t0 = time.perf_counter()
+    log("phase 13: MLA and MoE at full width — " + ", ".join(MOE_ARCHS))
+    cfgs = {a: get_config(a) for a in MOE_ARCHS}
+    for arch, cfg in cfgs.items():
+        attn = (f"MLA, {cfg.n_heads} heads, latent {cfg.kv_lora_rank} + "
+                f"rope {cfg.qk_rope_dim}" if cfg.kv_lora_rank else
+                f"H {cfg.n_heads} / Hkv {cfg.n_kv_heads} of {cfg.head_dim}")
+        log(f" {arch}: {cfg.n_layers} layers, d_model {cfg.d_model}, {attn}, "
+            f"{cfg.n_experts} experts top-{cfg.top_k} of {cfg.d_expert} + "
+            f"{cfg.n_shared_experts} shared, cf {cfg.capacity_factor}, "
+            f"vocab {cfg.vocab_size}, {cfg.kv_bytes_per_token()} KV bytes "
+            f"a token")
+    l4, ds = cfgs["llama4-scout-17b-a16e"], cfgs["deepseek-v2-lite-16b"]
+    recs = dense_kernels(torch, l4, k2_lengths=(256, 512))
+    deepseek_fp32(torch, ds, device, card)
+    gc.collect()
+    launches = {ds.name: moe_serve(torch, ds, device, card, "c")}
+    gc.collect()
+    launches[l4.name] = moe_serve(torch, l4, device, card, "e")
+    gc.collect()
+    log("  (f) llama4-scout fp32, attention_impl cuda vs torch")
+    dense_fp32_parity(torch, l4, device, card)
+    gc.collect()
+    log(f"phase 13 wall {time.perf_counter() - t0:.1f} s")
+    return recs, launches
+
+
 def rotation_sweep(torch, cfg, device, card, values):
     """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
     the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
@@ -1749,6 +2121,9 @@ def main(argv=None) -> int:
                     help="run phases 1-3 alone (build, check and time the "
                     "kernels) and print their JSON line, without the "
                     "served paths and without the ok line")
+    ap.add_argument("--phase13", action="store_true",
+                    help="run phases 1-2 and phase 13 (MLA and MoE) alone "
+                    "and print its records, without the ok line")
     ap.add_argument("--rotation-sweep", metavar="N,N,...",
                     help="after phases 1-2, serve phase 5b's trace once for "
                     "each rotation_min_chunk given, print each run's "
@@ -1802,6 +2177,12 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         print(card)
         return 0
+    if args.phase13:
+        moe = phase_moe(torch, device, card)
+        log(f"chip_smoke --phase13 wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"phase13": moe_records(*moe)}))
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -1821,6 +2202,7 @@ def main(argv=None) -> int:
     compared = phase_compare(torch, cfg, device, card, conserve_run)
     log(f"phase 10 wall {time.perf_counter() - t10:.1f} s")
     dense = dense_records(*phase_dense(torch, device, card))
+    moe = moe_records(*phase_moe(torch, device, card))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
@@ -1836,6 +2218,7 @@ def main(argv=None) -> int:
         k["phase10_launches"] = {run: c[k["name"]]
                                  for run, c in compared.items()}
         k["phase12"] = dense[k["name"]]  # and at each dense model's heads
+        k["phase13"] = moe[k["name"]]  # and at the MoE models' (G = 5)
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

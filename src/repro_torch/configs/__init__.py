@@ -1,9 +1,10 @@
 """Architecture config registry of the port: the paper's served model
 (qwen3-0.6b), the reference's dense family (olmo-1b, stablelm-12b,
-nemotron-4-15b, gemma3-12b), rwkv6-3b and recurrentgemma-9b are ported so
+nemotron-4-15b, gemma3-12b), rwkv6-3b, recurrentgemma-9b and the two MoE
+models (deepseek-v2-lite-16b with MLA, llama4-scout-17b-a16e) are ported so
 far. `get_config(arch)` returns the full published config and
-`get_reduced(arch)` the family-preserving smoke-test reduction. The four
-architectures the JAX package knows beyond these (`NOT_PORTED`: MLA, MoE,
+`get_reduced(arch)` the family-preserving smoke-test reduction. The two
+architectures the JAX package knows beyond these (`NOT_PORTED`: an
 encoder-decoder and a vision frontend) raise `KeyError`."""
 from __future__ import annotations
 
@@ -20,11 +21,12 @@ _MODULES = {
     "gemma3-12b": "gemma3_12b",
     "rwkv6-3b": "rwkv6_3b",
     "recurrentgemma-9b": "recurrentgemma_9b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "llama4-scout-17b-a16e": "llama4_scout_17b",
 }
 
 # architectures of the reference package that this port does not serve yet
-NOT_PORTED = ("internvl2-26b", "deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
-              "whisper-small")
+NOT_PORTED = ("internvl2-26b", "whisper-small")
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

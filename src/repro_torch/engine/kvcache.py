@@ -16,7 +16,8 @@ the pattern's repetitions on a leading axis, (G, n_slots, ...), leaves under
 "rem" do not, (n_slots, ...). Every function here takes a "rem" leaf through
 a (1, n_slots, ...) view of it, so one code path serves both. Two kinds of
 leaves sit side by side, as in the reference: growing ones (`GROWING_KEYS`:
-attention K/V, one row per token, (…, n_slots, max_ctx, ...)) and FIXED
+attention K/V and MLA's latent and rope key, one row per token, (…,
+n_slots, max_ctx, ...), where "..." is (Hkv, hd) or MLA's (rank,)) and FIXED
 states (RWKV6's "s", "shift", "cshift"; RG-LRU's "h", "conv"; (…, n_slots,
 ...), the same size whatever the context). A decode step appends to a
 growing leaf at the slot's length and replaces a fixed state; a prefill
@@ -113,7 +114,7 @@ def fold_decode_step(caches, updates, lens: torch.Tensor,
                                    up.to(leaf.dtype), leaf))
             continue
         pos = lens.clamp(max=leaf.shape[2] - 1).long()
-        old = leaf[:, ar, pos]  # (G, B, Hkv, hd)
+        old = leaf[:, ar, pos]  # (G, B, Hkv, hd); MLA's (G, B, rank)
         leaf[:, ar, pos] = torch.where(_slot_mask(mask, old.dim()),
                                        up[:, :, 0].to(leaf.dtype), old)
 

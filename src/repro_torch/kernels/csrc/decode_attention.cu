@@ -34,7 +34,9 @@
 //   returns; the loop of a live block stops at the live length, so the dead
 //   tail of the buffer is never fetched.
 // - The G query heads that share a KV head share every K/V row a block
-//   fetches: each byte is read once.
+//   fetches: each byte is read once. G is any of 1, 2, 4, 5, 6, 8, 16: a
+//   lane's state is indexed by g and nothing pairs heads, so an odd G
+//   (llama4-scout's 40 over 8) needs nothing of its own.
 // - 16-byte vector loads: a row is cut into P = D / VEC pieces of VEC
 //   contiguous elements (8 bf16 or 4 fp32; 4 bf16 when G = 16, to bound the
 //   registers). LPR lanes cover a row, the power of two at or above P (at
@@ -409,7 +411,8 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
                              B, S, Hkv, kv_stride_b, n_split, split_len,    \
                              scale, stream);                                \
     break;
-    REPRO_G(1) REPRO_G(2) REPRO_G(4) REPRO_G(6) REPRO_G(8) REPRO_G(16)
+    REPRO_G(1) REPRO_G(2) REPRO_G(4) REPRO_G(5) REPRO_G(6) REPRO_G(8)
+    REPRO_G(16)
 #undef REPRO_G
   }
   return cudaErrorInvalidValue;

@@ -35,9 +35,10 @@ from . import _build
 
 # the head dims and group sizes K1 is instantiated for (csrc/decode_attention.cu),
 # every pair with G * D <= MAX_GD: D = 160 serves stablelm-12b (G = 4), 240
-# gemma3-12b's global layers (G = 2), G = 6 nemotron-4-15b (D = 128)
+# gemma3-12b's global layers (G = 2), G = 6 nemotron-4-15b (D = 128), G = 5
+# llama4-scout-17b-a16e (D = 128)
 HEAD_DIMS = (16, 32, 64, 128, 160, 240)
-GROUPS = (1, 2, 4, 6, 8, 16)
+GROUPS = (1, 2, 4, 5, 6, 8, 16)
 MAX_GD = 2048
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _FN = None
@@ -128,7 +129,7 @@ def flash_decode_attention(q, k, v, lengths, k_new: Optional[torch.Tensor]
     with contiguous inner dims and equal strides; lengths (B,) int32;
     k_new, v_new (B, Hkv, D) contiguous or both None. float32 or bfloat16,
     head_dim D in HEAD_DIMS = (16, 32, 64, 128, 160, 240), G = H / Hkv in
-    GROUPS = (1, 2, 4, 6, 8, 16) with G * D <= MAX_GD (2048), every tensor
+    GROUPS = (1, 2, 4, 5, 6, 8, 16) with G * D <= MAX_GD (2048), every tensor
     16-byte aligned (the kernel loads 16 bytes at a time). Raises on any
     other shape. Returns (B, H, D)."""
     tensors = [q, k, v] + ([k_new, v_new] if k_new is not None else [])

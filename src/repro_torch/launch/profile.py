@@ -3,11 +3,15 @@ with the replica's CUDA graphs and without them.
 
     python -m repro_torch.launch.profile
            [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|
-                   gemma3-12b|rwkv6-3b|recurrentgemma-9b]
-           [--slots 16] [--ctx 300] [--steps 16] [--prefill 512]
+                   gemma3-12b|rwkv6-3b|recurrentgemma-9b|
+                   deepseek-v2-lite-16b|llama4-scout-17b-a16e]
+           [--layers N] [--slots 16] [--ctx 300] [--steps 16]
+           [--prefill 512]
 
 Builds one decode replica of `--arch` (default qwen3-0.6b; full width,
-bf16, seeded torch init), fills every slot with a `--ctx`-token
+bf16, seeded torch init; `--layers` cuts the depth to N layers, widths
+unchanged, for a model whose weights do not fit the card, such as
+llama4-scout-17b-a16e's 200.7 GiB), fills every slot with a `--ctx`-token
 conversation, and traces with `torch.profiler` one ragged decode chunk of
 `--steps` steps over all slots and one turn-1 prefill of `--prefill`
 tokens, each twice: through the same bodies run eagerly
@@ -87,6 +91,8 @@ def main(argv=None):
     from repro_torch.configs import ALL_ARCHS
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen3-0.6b", choices=ALL_ARCHS)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="cut the depth to this many layers (0: all)")
     ap.add_argument("--slots", type=int, default=16)
     ap.add_argument("--ctx", type=int, default=300)
     ap.add_argument("--steps", type=int, default=16)
@@ -105,6 +111,8 @@ def main(argv=None):
 
     dev = resolve_device("cuda")
     cfg = get_config(args.arch)
+    if args.layers:
+        cfg = cfg.scaled(n_layers=args.layers)
     params = build_model(cfg).init(0, dev)
     eng = ReplicaEngine(cfg, params, n_slots=args.slots, max_ctx=1024,
                         attention_impl="cuda")

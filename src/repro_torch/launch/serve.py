@@ -13,7 +13,8 @@ scales apart.
 
   python -m repro_torch.launch.serve (--engine | --sim)
          [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|gemma3-12b|
-                 rwkv6-3b|recurrentgemma-9b]
+                 rwkv6-3b|recurrentgemma-9b|deepseek-v2-lite-16b|
+                 llama4-scout-17b-a16e]
          [--device cuda|cpu] [--slots N] [--n-conversations N]
          [--scheduler NAME] [--gateway] [--scenario NAME] [--seed S]
 

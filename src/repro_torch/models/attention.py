@@ -1,7 +1,9 @@
 """GQA attention, global and sliding-window: blocked online-softmax prefill
 and append-prefill, the chunked sliding-window prefill, the two-branch decode
 against a slot cache, and the routes into the port's CUDA kernels
-(`attention_impl="cuda"`).
+(`attention_impl="cuda"`); and MLA (DeepSeek-style latent attention), whose
+cache is the compressed latent and one shared rope key, with the expanded
+prefill and the absorbed-matrix decode.
 
 Conventions follow the JAX package's `models/attention.py`: q, k, v are
 (B, S, H, D); decode reads a cache (B, L, Hkv, D) that it never writes —
@@ -9,7 +11,8 @@ it returns the new token's K/V and the cache manager appends it. A layer's
 kind picks its RoPE theta (`rope_theta_local` for a local layer) and its
 window (`cfg.window` for a local layer, 0 for a global one). The kernels are
 reached as in the reference: K2 only for a fresh global prefill, K1 only
-for a global decode; a local layer runs torch ops under both impls.
+for a global decode; a local layer and an MLA layer run torch ops under
+both impls (the reference has no kernel there either).
 """
 from __future__ import annotations
 
@@ -42,6 +45,29 @@ class Attention(nn.Module):
         if cfg.qk_norm:
             self.q_scale = param((hd,), dt, device)
             self.k_scale = param((hd,), dt, device)
+
+
+class MLA(nn.Module):
+    """w_dkv (d, rank + rope) compresses a token to its latent and rope key;
+    w_uk (rank, H, nope) and w_uv (rank, H, v_head_dim) expand the latent
+    per head; wo (H·v_head_dim, d); the query is wq (d, H·(nope + rope)), or
+    w_dq (d, q_rank) then w_uq (q_rank, H·(nope + rope)) when the config
+    has a q_lora_rank."""
+
+    def __init__(self, cfg: ModelConfig, device):
+        super().__init__()
+        d, dt, H = cfg.d_model, cfg.torch_dtype, cfg.n_heads
+        qd = cfg.qk_nope_dim + cfg.qk_rope_dim
+        self.w_dkv = param((d, cfg.kv_lora_rank + cfg.qk_rope_dim), dt,
+                           device)
+        self.w_uk = param((cfg.kv_lora_rank, H, cfg.qk_nope_dim), dt, device)
+        self.w_uv = param((cfg.kv_lora_rank, H, cfg.v_head_dim), dt, device)
+        self.wo = param((H * cfg.v_head_dim, d), dt, device)
+        if cfg.q_lora_rank:
+            self.w_dq = param((d, cfg.q_lora_rank), dt, device)
+            self.w_uq = param((cfg.q_lora_rank, H * qd), dt, device)
+        else:
+            self.wq = param((d, H * qd), dt, device)
 
 
 def rope_single(x, positions, theta: float):
@@ -402,3 +428,133 @@ def gqa_decode(attn: Attention, cfg: ModelConfig, kind: str, x1, position,
                                window=window, pos=position)
     out = out.reshape(x1.shape[0], 1, cfg.n_heads * cfg.head_dim)
     return out @ attn.wo, {"k": quantize_kv(k, cfg), "v": quantize_kv(v, cfg)}
+
+
+# --------------------------------------------------------------------------- #
+# MLA (multi-head latent attention)
+# --------------------------------------------------------------------------- #
+def _mla_q(attn: MLA, cfg: ModelConfig, x):
+    """(q_nope (B, S, H, nope), q_rope (B, S, H, rope)), before RoPE."""
+    B, S, _ = x.shape
+    q = ((x @ attn.w_dq) @ attn.w_uq if cfg.q_lora_rank else x @ attn.wq)
+    q = q.reshape(B, S, cfg.n_heads, cfg.qk_nope_dim + cfg.qk_rope_dim)
+    return q[..., :cfg.qk_nope_dim], q[..., cfg.qk_nope_dim:]
+
+
+def _latent(attn: MLA, cfg: ModelConfig, x):
+    """(ckv (B, S, rank), krope (B, S, rope)), before RoPE."""
+    dkv = x @ attn.w_dkv
+    return dkv[..., :cfg.kv_lora_rank], dkv[..., cfg.kv_lora_rank:]
+
+
+def mla_prefill(attn: MLA, cfg: ModelConfig, x, start_pos,
+                prefix_kv: Optional[Dict] = None, kv_lens=None,
+                prefix_start: Optional[int] = None,
+                attention_impl: str = "torch"):
+    """Prefill / append-prefill of an MLA layer in the expanded form: the
+    latent is expanded per head (K = [latent·W_uk, shared rope key], V =
+    latent·W_uv padded to the QK dim) and attended causally; the absorbed
+    form pays off only at decode. Returns (out, {"ckv", "krope"}): the new
+    tokens' latent and rope key, what the cache stores. The prefix layouts
+    and kv_lens are gqa_prefill's, and so is the prefix's padding to whole
+    key chunks (a ctx bucket and the whole buffer then give the same
+    bytes). Torch ops under both impls."""
+    _check_impl(attention_impl)
+    B, S, _ = x.shape
+    theta = cfg.rope_theta
+    pos = start_pos + torch.arange(S, device=x.device)
+    q_nope, q_rope = _mla_q(attn, cfg, x)
+    q_rope = apply_rope(q_rope, pos, theta)
+    ckv, krope = _latent(attn, cfg, x)
+    krope = apply_rope(krope, pos, theta)
+    new_cache = {"ckv": ckv, "krope": krope}
+
+    kv_valid = None
+    if prefix_kv is not None:
+        P = prefix_kv["ckv"].shape[1]
+        pad = (-P) % PREFIX_KV_CHUNK
+        pstart = (start_pos - P) if prefix_start is None else prefix_start
+        kv_pos = torch.cat([pstart + torch.arange(P, device=x.device),
+                            pos.new_full((pad,), 2**31 - 1), pos])
+
+        def rows(prefix, new):
+            prefix = torch.nn.functional.pad(prefix, (0, 0, 0, pad))
+            return torch.cat([prefix, new], dim=1)
+        ckv_all = rows(prefix_kv["ckv"], ckv)
+        krope_all = rows(prefix_kv["krope"], krope)
+        if kv_lens is not None:
+            kv_valid = torch.cat(
+                [torch.arange(P + pad, device=x.device)[None, :]
+                 < kv_lens.to(x.device)[:, None],
+                 torch.ones((B, S), dtype=torch.bool, device=x.device)],
+                dim=1)
+            kv_lens = None
+        chunks = dict(kv_chunk=PREFIX_KV_CHUNK)
+    else:
+        ckv_all, krope_all, kv_pos = ckv, krope, pos
+        ch = (1 << 30) if cfg.attn_block_full else 256
+        chunks = dict(q_chunk=ch, kv_chunk=ch)
+
+    k_nope = torch.einsum("blr,rhd->blhd", ckv_all, attn.w_uk)
+    vv = torch.einsum("blr,rhd->blhd", ckv_all, attn.w_uv)
+    k_full = torch.cat([k_nope, krope_all[:, :, None, :].expand(
+        *k_nope.shape[:3], cfg.qk_rope_dim)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    vv = torch.nn.functional.pad(vv, (0, k_full.shape[-1] - vv.shape[-1]))
+    out = online_attention(q_full, k_full, vv, pos, kv_pos, causal=True,
+                           kv_lens=kv_lens, kv_valid=kv_valid, **chunks)
+    out = out[..., :cfg.v_head_dim].reshape(B, S,
+                                            cfg.n_heads * cfg.v_head_dim)
+    return out @ attn.wo, new_cache
+
+
+def mla_decode(attn: MLA, cfg: ModelConfig, x1, position, cache: Dict,
+               kv_lens=None, ctx_limit: Optional[int] = None,
+               attention_impl: str = "torch"):
+    """Absorbed-matrix MLA decode: W_uk is folded into the query, so the
+    scores are taken in the latent space against the cache's ckv (B, L,
+    rank) and krope (B, L, rope) directly; the cached and the new token's
+    branches are merged by their partial softmaxes; the latent context goes
+    through W_uv per head after a cast to the model's dtype. The scores and
+    the context are fp32 products of the operands (the reference's
+    `preferred_element_type=float32`). Torch ops under both impls. Returns
+    (out, the new token's {"ckv", "krope"})."""
+    _check_impl(attention_impl)
+    B = x1.shape[0]
+    theta = cfg.rope_theta
+    q_nope, q_rope = _mla_q(attn, cfg, x1)
+    q_rope = rope_single(q_rope, position, theta)
+    q_lat = torch.einsum("bshd,rhd->bshr", q_nope, attn.w_uk)
+    ckv_n, krope_n = _latent(attn, cfg, x1)
+    krope_n = rope_single(krope_n, position, theta)
+    new_cache = {"ckv": quantize_kv(ckv_n, cfg),
+                 "krope": quantize_kv(krope_n, cfg)}
+    ckv_c = dequantize_kv(_trim_ctx(cache["ckv"], ctx_limit), cfg).float()
+    krope_c = dequantize_kv(_trim_ctx(cache["krope"], ctx_limit),
+                            cfg).float()
+    ckv_n, krope_n = ckv_n.float(), krope_n.float()
+    q_lat, q_rope = q_lat.float(), q_rope.float()
+
+    scale = 1.0 / math.sqrt(cfg.qk_nope_dim + cfg.qk_rope_dim)
+    L = ckv_c.shape[1]
+    s_c = (torch.einsum("bshr,blr->bshl", q_lat, ckv_c)
+           + torch.einsum("bshd,bld->bshl", q_rope, krope_c)) * scale
+    s_n = (torch.einsum("bshr,blr->bshl", q_lat, ckv_n)
+           + torch.einsum("bshd,bld->bshl", q_rope, krope_n)) * scale
+    mask_c = torch.ones((B, 1, 1, L), dtype=torch.bool, device=x1.device)
+    if kv_lens is not None:
+        mask_c &= (torch.arange(L, device=x1.device)[None, None, None, :]
+                   < kv_lens.to(x1.device)[:, None, None, None])
+    m_c, l_c, p_c = _partial_softmax(s_c, mask_c)
+    m_n, l_n, p_n = _partial_softmax(s_n, torch.ones_like(s_n,
+                                                          dtype=torch.bool))
+    ctx_c = torch.einsum("bshl,blr->bshr", p_c, ckv_c)
+    ctx_n = torch.einsum("bshl,blr->bshr", p_n, ckv_n)
+    m = torch.maximum(m_c, m_n)
+    c_c, c_n = torch.exp(m_c - m), torch.exp(m_n - m)
+    l = l_c * c_c + l_n * c_n
+    ctx = (ctx_c * c_c[..., None] + ctx_n * c_n[..., None]) / torch.clamp(
+        l[..., None], min=1e-20)
+    out = torch.einsum("bshr,rhd->bshd", ctx.to(x1.dtype), attn.w_uv)
+    out = out.reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
+    return out @ attn.wo, new_cache

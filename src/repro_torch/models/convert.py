@@ -7,15 +7,17 @@ process. The tree is nested dicts of numpy arrays in the reference's layout
 — {"embed": {"w"}, "final_norm": {"scale"} ({} for nonparametric_ln),
 "unembed": {} (tied) or {"w"} (untied), "groups": {"p{j}": block}, "rem":
 {"p{j}": block}} with a block
-{"ln1", "ln2", "attn", "mlp"} for GQA attention, {"ln1", "ln2", "tmix",
-"cmix"} for RWKV6 and {"ln1", "ln2", "rglru", "mlp"} for RG-LRU; "groups"
-blocks have the pattern's repetitions stacked on a leading axis, "rem"
-blocks do not (`transformer.layer_places`) — and the leaves keep their
-shapes.
+{"ln1", "ln2", "attn", "mlp"} for GQA or MLA attention ("moe" in place of
+"mlp" in a MoE config: "router", the stacked experts and a nested "shared"
+MLP), {"ln1", "ln2", "tmix", "cmix"} for RWKV6 and {"ln1", "ln2", "rglru",
+"mlp"} for RG-LRU; "groups" blocks have the pattern's repetitions stacked
+on a leading axis, "rem" blocks do not (`transformer.layer_places`) — and
+the leaves keep their shapes. Each leaf takes its module's dtype (a MoE's
+router stays float32 in a bf16 model).
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
@@ -26,12 +28,15 @@ from .config import ModelConfig
 from .transformer import LM, layer_places
 
 
-def _block_leaves(block) -> Dict[str, Dict[str, torch.Tensor]]:
-    """One block's parameters under the reference's names: its submodules
-    (ln1, ln2 and the kind's mixer and FFN) and their leaves — {} for a
-    norm without parameters (nonparametric_ln)."""
-    return {sub: dict(mod.named_parameters())
-            for sub, mod in block.named_children()}
+def _leaves_of(mod) -> Dict[str, Any]:
+    """A module's parameters under the reference's names, nested as its
+    submodules are: a block's ln1, ln2 and the kind's mixer and FFN, a
+    MoE's "shared" MLP — {} for a norm without parameters
+    (nonparametric_ln)."""
+    tree: Dict[str, Any] = dict(mod.named_parameters(recurse=False))
+    tree.update({sub: _leaves_of(child)
+                 for sub, child in mod.named_children()})
+    return tree
 
 
 def _same_names(dst: Dict, src: Dict, where: str) -> None:
@@ -47,7 +52,7 @@ def _same_names(dst: Dict, src: Dict, where: str) -> None:
 def _top_leaves(lm: LM) -> Dict[str, Dict[str, torch.Tensor]]:
     """embed, final_norm and unembed's parameters under the reference's
     names ({} for a tied unembedding or a parameter-free norm)."""
-    return {sub: dict(getattr(lm, sub).named_parameters())
+    return {sub: _leaves_of(getattr(lm, sub))
             for sub in ("embed", "final_norm", "unembed")}
 
 
@@ -61,28 +66,26 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
     follow cfg."""
     lm = LM(cfg, resolve_device(device))
 
-    def put(dst: torch.Tensor, src, where: str):
-        arr = np.asarray(src)
-        if tuple(arr.shape) != tuple(dst.shape):
-            raise ValueError(f"{where}: shape {arr.shape} != "
-                             f"{tuple(dst.shape)}")
-        dst.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
+    def load(dst: Dict[str, Any], src: Dict[str, Any], where: str,
+             g: Optional[int]):
+        _same_names(dst, src, where)
+        for n, t in dst.items():
+            at = f"{where}.{n}" if where else n
+            if isinstance(t, dict):
+                load(t, src[n], at, g)
+                continue
+            arr = np.asarray(src[n])
+            if g is not None:
+                arr, at = arr[g], f"{at}[{g}]"
+            if tuple(arr.shape) != tuple(t.shape):
+                raise ValueError(f"{at}: shape {arr.shape} != "
+                                 f"{tuple(t.shape)}")
+            t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
 
-    for sub, leaves in _top_leaves(lm).items():
-        _same_names(leaves, tree.get(sub, {}), sub)
-        for n, dst in leaves.items():
-            put(dst, tree[sub][n], f"{sub}.{n}")
+    load(_top_leaves(lm), {sub: tree.get(sub, {}) for sub in
+                           ("embed", "final_norm", "unembed")}, "", None)
     for (sec, key, g), block in zip(layer_places(cfg), lm.blocks):
-        node = tree[sec][key]
-        where = f"{sec}.{key}"
-        blocks = _block_leaves(block)
-        _same_names(blocks, node, where)
-        for sub, leaves in blocks.items():
-            _same_names(leaves, node[sub], f"{where}.{sub}")
-            for n, dst in leaves.items():
-                src = np.asarray(node[sub][n])
-                put(dst, src if g is None else src[g],
-                    f"{where}.{sub}.{n}" + ("" if g is None else f"[{g}]"))
+        load(_leaves_of(block), tree[sec][key], f"{sec}.{key}", g)
     return lm
 
 
@@ -92,17 +95,21 @@ def params_to_numpy(lm: LM) -> Dict[str, Any]:
     numpy arrays, with the layers restacked under "groups"/"p{j}" and the
     remainder under "rem"/"p{j}"; a module without a leaf (a
     parameter-free norm, an MLP without wg) gives none."""
-    np_ = lambda t: t.detach().float().cpu().numpy()  # noqa: E731
+    def to_np(node):
+        return {n: to_np(t) if isinstance(t, dict)
+                else t.detach().float().cpu().numpy()
+                for n, t in node.items()}
+
+    def stack(per):
+        return {n: stack([b[n] for b in per]) if isinstance(v, dict)
+                else np.stack([b[n] for b in per])
+                for n, v in per[0].items()}
+
     by_key: Dict[tuple, list] = {}
     for (sec, key, _), b in zip(layer_places(lm.cfg), lm.blocks):
-        by_key.setdefault((sec, key), []).append(
-            {sub: {n: np_(t) for n, t in leaves.items()}
-             for sub, leaves in _block_leaves(b).items()})
-    tree: Dict[str, Any] = {
-        sub: {n: np_(t) for n, t in leaves.items()}
-        for sub, leaves in _top_leaves(lm).items()}
+        by_key.setdefault((sec, key), []).append(to_np(_leaves_of(b)))
+    tree: Dict[str, Any] = to_np(_top_leaves(lm))
     for (sec, key), per in by_key.items():
-        tree.setdefault(sec, {})[key] = (
-            {sub: {n: np.stack([b[sub][n] for b in per]) for n in per[0][sub]}
-             for sub in per[0]} if sec == "groups" else per[0])
+        tree.setdefault(sec, {})[key] = (stack(per) if sec == "groups"
+                                         else per[0])
     return tree

@@ -138,11 +138,12 @@ ACTIVATIONS = {"silu": F.silu, "gelu": gelu, "squared_relu": squared_relu}
 
 
 class MLP(nn.Module):
-    """wi, wo, and wg when cfg.gated_mlp."""
+    """wi, wo, and wg when cfg.gated_mlp; hidden width `d_ff` (default
+    cfg.d_ff; a MoE's shared experts pass n_shared_experts x d_ff)."""
 
-    def __init__(self, cfg, device):
+    def __init__(self, cfg, device, d_ff=None):
         super().__init__()
-        d, f, dt = cfg.d_model, cfg.d_ff, cfg.torch_dtype
+        d, f, dt = cfg.d_model, d_ff or cfg.d_ff, cfg.torch_dtype
         self.wi = param((d, f), dt, device)
         if cfg.gated_mlp:
             self.wg = param((d, f), dt, device)

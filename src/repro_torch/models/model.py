@@ -9,19 +9,20 @@ import torch
 from repro_torch.device import resolve_device
 
 from . import transformer
-from .config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
+from .config import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_MLA, RGLRU, RWKV6,
+                     ModelConfig)
 from .layers import init_params
 from .recurrent import _rwkv_dims
 
 # cache leaves that grow by one row per token (the rest are fixed states)
-GROWING_KEYS = ("k", "v")
+GROWING_KEYS = ("k", "v", "ckv", "krope")
 
 
 def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int, ctx: int
                        ) -> Dict[str, Tuple[Tuple[int, ...], torch.dtype]]:
     """(shape, dtype) of each cache leaf one layer of `kind` holds after
     `ctx` tokens — the reference's `block_cache_skeleton`. Attention caches
-    grow (a local layer's is at most its window long); recurrent states are
+    (GQA K/V, MLA's latent and rope key) grow (a local layer's is at most its window long); recurrent states are
     fixed-size. RWKV6's nh_pad comes from `recurrent._rwkv_dims`, as in the
     model itself (the reference's skeleton takes `rwkv_pad_heads_to or nh`,
     which disagrees with its model when 0 < rwkv_pad_heads_to < nh — F6)."""
@@ -31,6 +32,9 @@ def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int, ctx: int
         L = min(ctx, cfg.window) if kind == ATTN_LOCAL and cfg.window else ctx
         shape = (batch, L, cfg.n_kv_heads, cfg.head_dim)
         return {"k": (shape, kv_dt), "v": (shape, kv_dt)}
+    if kind == ATTN_MLA:  # the compressed latent and the shared rope key
+        return {"ckv": ((batch, ctx, cfg.kv_lora_rank), kv_dt),
+                "krope": ((batch, ctx, cfg.qk_rope_dim), kv_dt)}
     if kind == RWKV6:
         hs = cfg.rwkv_head_size
         _, nh_pad, _ = _rwkv_dims(cfg)

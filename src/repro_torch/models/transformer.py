@@ -1,5 +1,5 @@
-"""Decoder-only LM assembled from a ModelConfig: an embedding, one `Block`
-per layer in an `nn.ModuleList`, a final norm and the (tied or untied)
+"""Decoder-only LM assembled from a ModelConfig: an embedding, one `Block` per
+layer in an `nn.ModuleList`, a final norm and the (tied or untied)
 unembedding, with the prefill / decode entry points the serving engine
 uses.
 
@@ -11,9 +11,10 @@ under "rem"/"p{j}" without that axis. Layer i = g * len(pattern) + j reads
 groups/p{j}[g]; the remainder's layers follow. A one-kind pattern has no
 remainder, so all its layers stack under "groups"/"p0". The leaves are the
 kind's: "k", "v" (…, batch, ctx, Hkv, hd) for attention (a local layer's
-ctx is at most its window); "s" (…, batch, nh_pad, hs, hs) and "shift",
-"cshift" (…, batch, 1, d_model) for RWKV6; "h" (…, batch, lru_width) and
-"conv" (…, batch, conv1d_width - 1, lru_width) for RG-LRU.
+ctx is at most its window); "ckv" (…, batch, ctx, kv_lora_rank) and "krope"
+(…, batch, ctx, qk_rope_dim) for MLA; "s" (…, batch, nh_pad, hs, hs) and
+"shift", "cshift" (…, batch, 1, d_model) for RWKV6; "h" (…, batch,
+lru_width) and "conv" (…, batch, conv1d_width - 1, lru_width) for RG-LRU.
 """
 from __future__ import annotations
 
@@ -23,7 +24,8 @@ import torch
 from torch import nn
 
 from .blocks import Block, block_decode, block_prefill
-from .config import ATTN_GLOBAL, ATTN_LOCAL, RGLRU, RWKV6, ModelConfig
+from .config import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_MLA, RGLRU, RWKV6,
+                     ModelConfig)
 from .layers import embed, make_norm, param, unembed
 
 
@@ -33,20 +35,25 @@ HYBRID_PATTERN = (RGLRU, RGLRU, ATTN_LOCAL)
 DENSE_PATTERNS = ((ATTN_GLOBAL,), (ATTN_LOCAL,) * 5 + (ATTN_GLOBAL,))
 DENSE_NORMS = ("rmsnorm", "layernorm", "nonparametric_ln")
 DENSE_ACTIVATIONS = ("silu", "squared_relu", "gelu")
+MLA_PATTERN = (ATTN_MLA,)  # deepseek-v2-lite-16b
+# the patterns a MoE config may have: llama4-scout's and deepseek's
+MOE_PATTERNS = ((ATTN_GLOBAL,), MLA_PATTERN)
 
 
 def check_ported(cfg: ModelConfig) -> None:
     """Raise NotImplementedError for a configuration the port does not serve
-    yet, naming what is missing. It serves three families: dense GQA
-    decoders — the pattern (global) or (local x 5, global), any of the
-    norms rmsnorm, layernorm and nonparametric_ln, the activations silu,
-    squared_relu and gelu, a gated MLP or not, tied embeddings or not,
-    qk-norm or not (qwen3-0.6b, olmo-1b, stablelm-12b, nemotron-4-15b,
-    gemma3-12b); attention-free RWKV6 with LayerNorm and untied embeddings
-    (rwkv6-3b), whose FFN is the channel-mix; and the Griffin hybrid — the
-    pattern (RG-LRU, RG-LRU, local attention) with RMSNorm, a gelu gated
-    MLP, untied embeddings and no qk-norm (recurrentgemma-9b). Not yet: MLA,
-    MoE, encoder-decoder and frontends."""
+    yet, naming what is missing. It serves four families: decoders with
+    GQA or MLA attention — the pattern (global), (local x 5, global) or
+    (MLA), any of the norms rmsnorm, layernorm and nonparametric_ln, the
+    activations silu, squared_relu and gelu, a gated MLP or not, tied
+    embeddings or not, qk-norm or not (qwen3-0.6b, olmo-1b, stablelm-12b,
+    nemotron-4-15b, gemma3-12b), and with the pattern (global) or (MLA) the
+    grouped-capacity MoE in place of the MLP (llama4-scout-17b-a16e,
+    deepseek-v2-lite-16b); attention-free RWKV6 with LayerNorm and untied
+    embeddings (rwkv6-3b), whose FFN is the channel-mix; and the Griffin
+    hybrid — the pattern (RG-LRU, RG-LRU, local attention) with RMSNorm, a
+    gelu gated MLP, untied embeddings and no qk-norm (recurrentgemma-9b).
+    Not yet: encoder-decoder and frontends."""
     if cfg.block_pattern == (RWKV6,):
         family = (("norm", cfg.norm, ("layernorm",)),
                   ("tie_embeddings", cfg.tie_embeddings, (False,)))
@@ -57,12 +64,14 @@ def check_ported(cfg: ModelConfig) -> None:
                   ("tie_embeddings", cfg.tie_embeddings, (False,)),
                   ("qk_norm", cfg.qk_norm, (False,)))
     else:
-        family = (("block_pattern", cfg.block_pattern, DENSE_PATTERNS),
+        family = (("block_pattern", cfg.block_pattern,
+                   DENSE_PATTERNS + (MLA_PATTERN,)),
                   ("norm", cfg.norm, DENSE_NORMS),
                   ("activation", cfg.activation, DENSE_ACTIVATIONS))
-    common = (("n_experts (MoE)", cfg.n_experts, (0,)),
-              ("kv_lora_rank (MLA)", cfg.kv_lora_rank, (0,)),
-              ("is_encoder_decoder", cfg.is_encoder_decoder, (False,)),
+    if cfg.n_experts:
+        family += (("block_pattern of a MoE", cfg.block_pattern,
+                    MOE_PATTERNS),)
+    common = (("is_encoder_decoder", cfg.is_encoder_decoder, (False,)),
               ("frontend", cfg.frontend, ("none",)))
     missing = [f"{what} {got!r}" for what, got, want in family + common
                if got not in want]

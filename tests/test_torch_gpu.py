@@ -92,7 +92,12 @@ def _rand(dev, dtype, seed, shape):
                                      # nemotron (G = 6), gemma3, olmo
                                      (32, 8, 160), (48, 8, 128),
                                      (16, 8, 240), (16, 16, 128),
-                                     (12, 2, 160), (16, 2, 240)])
+                                     (12, 2, 160), (16, 2, 240),
+                                     # llama4-scout's heads (G = 5, the
+                                     # first odd G above 1), and G = 5 at
+                                     # D = 16, 160 and 240
+                                     (40, 8, 128), (5, 1, 16), (10, 2, 160),
+                                     (5, 1, 240)])
 def test_cuda_decode_kernel_matches_plain(cuda, dtype, H, Hkv, D):
     """Ragged lengths 1, S, and longer than the trimmed read; the cache is a
     strided view of a longer buffer; the new token rides as a second
@@ -197,7 +202,10 @@ def test_cuda_decode_kernel_graph_replay_equals_eager(cuda):
     (200, 32, 8, 160, 0), (512, 32, 8, 160, 0), (65, 32, 8, 160, 96),
     (1, 32, 8, 160, 0), (200, 48, 8, 128, 0), (1024, 48, 8, 128, 0),
     (200, 16, 8, 240, 0), (1024, 16, 8, 240, 0), (31, 16, 8, 240, 0),
-    (33, 16, 8, 240, 0), (300, 16, 8, 240, 96), (256, 16, 16, 128, 0)])
+    (33, 16, 8, 240, 0), (300, 16, 8, 240, 96), (256, 16, 16, 128, 0),
+    # llama4-scout's heads (G = 5), ragged around the tiles
+    (1, 40, 8, 128, 0), (65, 40, 8, 128, 0), (200, 40, 8, 128, 0),
+    (512, 40, 8, 128, 0), (300, 40, 8, 128, 96)])
 def test_cuda_prefill_kernel_matches_plain(cuda, dtype, S, H, Hkv, D, window):
     q = _rand(cuda, dtype, 0, (2, S, H, D))
     k, v = (_rand(cuda, dtype, i, (2, S, Hkv, D)) for i in (1, 2))
@@ -216,7 +224,7 @@ def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     one = torch.ones(1, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash_decode_attention(q, k, k, one)
-    q = torch.zeros(1, 5, 128, device=cuda)  # G = 5: not instantiated yet
+    q = torch.zeros(1, 3, 128, device=cuda)  # G = 3: not instantiated
     k = torch.zeros(1, 8, 1, 128, device=cuda)
     with pytest.raises(ValueError, match="H/Hkv"):
         flash_decode_attention(q, k, k, one)
@@ -665,7 +673,10 @@ def test_fp32_failure_replay_is_byte_identical(cuda, rejoin):
 # --------------------------------------------------------------------------- #
 GRAPH_ARCHS = {"qwen3-0.6b": {}, "rwkv6-3b": {},
                "recurrentgemma-9b": {"window": 256}, "stablelm-12b": {},
-               "gemma3-12b": {"window": 256}}
+               "gemma3-12b": {"window": 256},
+               # at the published cf 1.25: the MoE drops tokens in the graph
+               "deepseek-v2-lite-16b": {"capacity_factor": 1.25},
+               "llama4-scout-17b-a16e": {"capacity_factor": 1.25}}
 
 
 def _caches(eng):
@@ -863,3 +874,35 @@ def test_fast_and_reference_prefill_caches_byte_identical(cuda, impl):
              for a, b in zip(caches["jit"], caches["reference"])]
     assert all(torch.equal(a, b) for a, b in zip(caches["jit"],
                                                  caches["reference"])), diffs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b",
+                                  "llama4-scout-17b-a16e"])
+def test_moe_body_in_a_cuda_graph_equals_eager(cuda, dtype, arch):
+    """The MoE of a decode step (16 slots, one token each) at the published
+    cf 1.25, where capacity drops tokens: captured in a CUDA graph and
+    replayed on new inputs, it gives the eager call's bytes."""
+    from repro_torch.models.layers import init_params
+    from repro_torch.models.moe import MoE, apply_moe, route
+    cfg = get_reduced(arch).scaled(capacity_factor=1.25, n_experts=8,
+                                   dtype=dtype)
+    moe = init_params(MoE(cfg, cuda), 0)
+    x = _rand(cuda, dtype, 11, (16, 1, cfg.d_model))
+    assert not bool(route(moe, cfg, x.reshape(1, 16, -1))[3].all())
+    static = x.clone()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        apply_moe(moe, cfg, static)  # warm-up off the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = apply_moe(moe, cfg, static)
+    for seed in (12, 13):
+        x = _rand(cuda, dtype, seed, (16, 1, cfg.d_model))
+        static.copy_(x)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, apply_moe(moe, cfg, x))

@@ -21,7 +21,6 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import jax  # noqa: E402
-from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from repro.configs import get_reduced as jax_reduced  # noqa: E402
 from repro.engine import ReplicaEngine as JaxReplica  # noqa: E402
@@ -33,7 +32,7 @@ from repro_torch.engine.kvcache import (fold_prefill,  # noqa: E402
                                         leaves, map_leaves, slice_slot_prefix)
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.convert import params_from_numpy  # noqa: E402
-from torch_support import one_thread  # noqa: E402,F401
+from torch_support import NoHostRead, one_thread  # noqa: E402,F401
 
 FAMILIES = ("qwen3-0.6b", "rwkv6-3b", "recurrentgemma-9b")
 
@@ -268,19 +267,6 @@ def test_device_indexed_fold_and_gather_equal_slicing(models, arch, slot,
 # --------------------------------------------------------------------------- #
 # no host read inside a body
 # --------------------------------------------------------------------------- #
-HOST_READS = {"_local_scalar_dense", "nonzero", "masked_select", "item"}
-
-
-class NoHostRead(TorchDispatchMode):
-    """Raise on any op that reads a device value back to the host: a CUDA
-    graph cannot capture it."""
-
-    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func.overloadpacket.__name__ in HOST_READS:
-            raise AssertionError(f"host read inside a program body: {func}")
-        return func(*args, **(kwargs or {}))
-
-
 @pytest.mark.parametrize("arch", FAMILIES)
 def test_program_bodies_read_nothing_back(models, arch):
     """The decode body of every family, and qwen's turn-1 and append
