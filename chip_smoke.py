@@ -9,7 +9,9 @@ rwkv6-3b and recurrentgemma-9b at full width — then qwen3-0.6b under the
 paper's baselines, through failures and live through the gateway, then the
 reference's dense family (olmo-1b, stablelm-12b, nemotron-4-15b, gemma3-12b)
 at full width, then its MoE models (deepseek-v2-lite-16b with MLA,
-llama4-scout-17b-a16e at the depth that fits), and holds each hand-written
+llama4-scout-17b-a16e at the depth that fits), then its vision-frontend
+model (internvl2-26b) and its encoder-decoder (whisper-small) at full
+width and depth, and holds each hand-written
 CUDA kernel of those paths against its plain PyTorch version on the card.
 Every replica runs its decode chunks, turn-1 prefills and appends through
 its programs' CUDA graphs (the default), so the launch counts of the served
@@ -93,8 +95,9 @@ Phases, each raising on failure:
      with TF32 off (11a qwen3-0.6b on phase 4's weights, 11c rwkv6-3b on
      phase 6's, 11d recurrentgemma-9b on phase 8's) the tokens and the
      caches must be byte-identical after every chunk, and each prints a
-     16-step chunk's wall and traced device time per step, eager against
-     graph, the launches per replay, each decode bucket's capture seconds,
+     16-step chunk's wall time per step, eager against graph, the graph's
+     traced device time, the launches per replay, each decode bucket's
+     capture seconds,
      the graph pool and peak memory; in bf16 (11b, phase 5's weights) it
      prints the count of equal tokens. Phase 4 also runs qwen3-0.6b's
      graphed turn-1 prefill and appends against the eager fast path (byte-
@@ -139,13 +142,39 @@ Phases, each raising on failure:
      transfer each of kv_bytes_per_token x the tokens — and (f) fp32
      parity between the impls as phase 12 (b), with each router's smallest
      top-1 margin and every routing flip between the impls printed. Prints
-     its wall time.
+     its wall time;
+ 14. the vision frontend and the encoder-decoder, each model freed before
+     the next, the stubs fed seeded (numpy) embeddings — the i-th turn-1
+     the same ones in the graph and the eager pass — and the server's
+     zeros when served: whisper-small (a) K1 and K2 at its heads (12 / 12
+     x 64, G = 1) against their plain versions as in phase 12 (a), K2 at S
+     = 256 and 512; (b) fp32 at full width (TF32 off): a 150-token prefill
+     and a decode step under "cuda" and "torch" — logits within 1e-3 of
+     max(1, max|logit|), K1 and K2 each launched once per decoder layer
+     (the encoder and every cross-attention are torch ops) — 8 greedy
+     steps of a ReplicaEngine pair equal, the slot at the prompt's length
+     (F14), the cross rows byte-identical after an append and 16 decode
+     steps, and phase 11's graphs against eager, byte-identical; (c) bf16
+     served as 5b — 8 of 8, one transfer each of 55,296,000 B of cross rows
+     + 36,864 B x its length, K1 = 12 x the graphed decode steps, K2 = 12 x
+     8 eager turn-1 prefills — then a 16-slot step, the device time of its
+     12 cross-attentions, and an eager 150-token prefill beside the
+     encoder alone; internvl2-26b (d) fp32 at the depth that holds phase
+     11's cache copies (printed): impls as phase 12 (b) and graphs against
+     eager, byte-identical, with seeded patches; (e) bf16 at full width and
+     depth served as 5b — transfers of 196,608 B x (256 + the first
+     input), K1 = 48 x the graphed decode steps, K2 = 48 x 8 graphed
+     turn-1 prefills — then a 16-slot step. Prints its wall time.
+
+Every log line starts with the seconds since the script began.
 
 Each model is freed before the next is loaded. The last four lines of
 standard output are the script's wall time, the card's name and power
 limit, one JSON object with a record per kernel (K1's and K2's with their
-phase-10 launches and, under "phase12" and "phase13", each dense and MoE
-model's served launches and, at its heads, the bf16 records), and `{"ok":
+phase-10 launches and, under "phase12", "phase13" and "phase14", each
+dense, MoE and frontend model's served launches and, at its heads, the
+bf16 records — internvl2-26b's are nemotron-4-15b's, the same 48 / 8 x
+128), and `{"ok":
 true, "device": {...}}`. Without a card, or without the repository around
 it, it exits non-zero before printing any result.
 
@@ -158,6 +187,12 @@ line (no ok line): the quick way to time the kernels of a tree.
 
 runs phases 1-2 and phase 13 alone and ends with the card line and phase
 13's records (no ok line).
+
+    python3 chip_smoke.py --phase14
+
+runs phases 1-2 and phase 14 alone and ends with the card line and phase
+14's records (no ok line; internvl2-26b's without phase 12's kernel
+records).
 
     python3 chip_smoke.py --rotation-sweep 4,8,16,32
 
@@ -208,8 +243,13 @@ RGLRU_TOL = 1e-5
 RG_LOGIT_RTOL = 1e-3
 
 
+_T0 = time.perf_counter()
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the script began
+    (where each phase's time goes)."""
+    print(f"[{time.perf_counter() - _T0:7.1f} s] {msg}", flush=True)
 
 
 def card_line() -> str:
@@ -1086,22 +1126,28 @@ def cache_copy(eng):
     return [t.clone() for _, t in leaves(eng.kv.caches)]
 
 
-def graph_script(eng, seed):
+def graph_script(eng, seed, front=None):
     """The chunks a served decoder meets, at full width: 12 slots
     prefilled, a ragged chunk of up to 32 steps with two live slots idle, a
     slot joining and an append between chunks (the split-chunk contract), a
     chunk of 16, a kill (every slot invalidated and the cache kept, as
-    `EngineServer` fails a replica), a rejoin and a chunk of 4. Yields
-    (label, sampled tokens) after each chunk."""
+    `EngineServer` fails a replica), a rejoin and a chunk of 4. `front(i)`
+    gives the i-th turn-1 prefill its frontend embeddings (a vision model's
+    patches, an encoder-decoder's frames). Yields (label, sampled tokens)
+    after each chunk."""
     import numpy as np
     rs = np.random.RandomState(seed)
     n, V = eng.kv.n_slots, eng.cfg.vocab_size
     nt = np.zeros(n, np.int32)
     em = np.zeros(n, bool)
+    admitted = []
 
     def admit(length):
         s = eng.kv.acquire()
-        nt[s] = int(eng.prefill_conversation(s, rs.randint(0, V, length))[0])
+        fe = front and front(len(admitted))
+        admitted.append(s)
+        nt[s] = int(eng.prefill_conversation(
+            s, rs.randint(0, V, length), fe)[0])
         em[s] = True
 
     for length in rs.randint(40, 400, 12):
@@ -1125,22 +1171,21 @@ def graph_script(eng, seed):
     yield "killed and rejoined, chunk of 4", seq
 
 
-def phase_graphs(torch, cfg, params, card, tag, gate=True):
+def phase_graphs(torch, cfg, params, card, tag, gate=True, front=None,
+                 times=True):
     """On the caller's weights: `graph_script` through the CUDA graphs and
     through the same bodies run eagerly (`cuda_graphs=False`), on the same
     cache from the same zeroed start, the buckets of the last chunk
     captured after the kill. `gate` (fp32 with TF32 off): the tokens equal
-    and the caches byte-identical after every chunk, then one 16-step chunk
-    over 16 slots at ctx ~300, eager and graph — wall and device time per
-    step, kernel launches per replay, the capture seconds of each decode
-    bucket, the graph pool, peak memory. Without `gate` (bf16) the count of
-    equal tokens and the largest cache difference are printed."""
+    and the caches byte-identical after every chunk, then (with `times`)
+    `step_times`.
+    Without `gate` (bf16) the count of equal tokens and the largest cache
+    difference are printed. `front(i)`: the i-th turn-1's frontend
+    embeddings."""
     import gc
 
-    import numpy as np
     from repro_torch.engine import ReplicaEngine
     from repro_torch.engine.kvcache import leaves
-    from repro_torch.launch.profile import traced
     log(f"phase {tag}: {cfg.name} full width {cfg.dtype}, the CUDA graphs "
         f"against the same bodies run eagerly, on one cache")
     gc.collect()
@@ -1154,7 +1199,8 @@ def phase_graphs(torch, cfg, params, card, tag, gate=True):
             t.zero_()
         eng.kv.invalidate_all()
         eng.cuda_graphs = graphs
-        for i, (label, seq) in enumerate(graph_script(eng, seed=11)):
+        for i, (label, seq) in enumerate(graph_script(eng, seed=11,
+                                                      front=front)):
             if not graphs:
                 want.append((seq, cache_copy(eng)))
                 continue
@@ -1168,29 +1214,46 @@ def phase_graphs(torch, cfg, params, card, tag, gate=True):
                 raise AssertionError(f"{cfg.name}: graph and eager differ "
                                      f"after: {label}")
     del want
-    if not gate:
-        del eng
-        gc.collect()
-        torch.cuda.empty_cache()
-        return
+    if gate and times:
+        step_times(torch, eng, card, front)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def step_times(torch, eng, card, front=None):
+    """Every slot of `eng` filled with a 300-token conversation (after its
+    frontend embeddings, `front(slot)`), then one 16-step chunk eager and one
+    through the graph — wall time per step, and for the graph the device
+    time per step and the kernel launches per replay (`traced`: the eager
+    chunk runs the same kernels, and tracing its host ops costs tens of
+    seconds), the capture seconds of each decode bucket, the graph pool,
+    peak memory. Returns {"eager" | "graph": wall seconds a step}."""
+    import numpy as np
+    from repro_torch.launch.profile import traced
+    cfg = eng.cfg
+    n = eng.kv.n_slots
     rs = np.random.RandomState(12)
     eng.kv.invalidate_all()
-    nt = np.zeros(GRAPH_SLOTS, np.int32)
-    for _ in range(GRAPH_SLOTS):
+    nt = np.zeros(n, np.int32)
+    for _ in range(n):
         s = eng.kv.acquire()
         nt[s] = int(eng.prefill_conversation(
-            s, rs.randint(0, cfg.vocab_size, 300))[0])
-    em = np.ones(GRAPH_SLOTS, bool)
+            s, rs.randint(0, cfg.vocab_size, 300), front and front(s))[0])
+    em = np.ones(n, bool)
     step = {}
     for graphs, label in ((False, "eager"), (True, "graph")):
         eng.cuda_graphs = graphs
         eng.decode_steps(nt, em, 16)  # builds (and captures) the bucket
         _, dt = eng.decode_steps(nt, em, 16)
+        step[label] = dt / 16
+        if not graphs:
+            log(f"  [{card}] decode step, eager: wall {dt * 1e3 / 16:.3f} ms")
+            continue
         (_, dt_t), rows = traced(lambda: eng.decode_steps(nt, em, 16))
         busy = sum(r[1] for r in rows) / 1e3
         n_k = sum(r[2] for r in rows)
-        step[label] = dt / 16
-        log(f"  [{card}] decode step, {label}: wall {dt * 1e3 / 16:.3f} ms, "
+        log(f"  [{card}] decode step, graph: wall {dt * 1e3 / 16:.3f} ms, "
             f"device busy {busy / 16:.3f} ms ({100 * busy / (dt_t * 1e3):.1f}"
             f"% of the traced chunk's wall {dt_t * 1e3 / 16:.3f} ms a step), "
             f"{n_k} kernel launches in the chunk ({n_k / 16:.1f} a step)")
@@ -1204,9 +1267,7 @@ def phase_graphs(torch, cfg, params, card, tag, gate=True):
         f"graph pool {eng.graph_pool_bytes() / 2**20:.1f} MiB, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB, device memory "
         f"outside the caching allocator {outside:.3f} GiB")
-    del eng
-    gc.collect()
-    torch.cuda.empty_cache()
+    return step
 
 
 def phase_prefill_reference(torch, cfg, params):
@@ -1601,7 +1662,7 @@ def fit_depth(torch, cfg, per_layer_extra: float = 0.0,
     return cfg.scaled(n_layers=n)
 
 
-def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
+def dense_fp32_parity(torch, cfg, device, card, n_decode=8, front=None):
     """(b) full width in fp32, TF32 off: a 150-token prefill and one decode
     step through K2/K1 ("cuda") and the torch path on the same weights —
     logits within DENSE_LOGIT_RTOL x max(1, max|logit|), K1 and K2 each
@@ -1609,7 +1670,8 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
     pair over 8 decode steps, equal. Depth is cut only if the weights do
     not fit (printed). In a MoE model each router's choices in the prefill
     and the decode step are recorded under both impls and compared
-    (`routing_report`)."""
+    (`routing_report`). `front(0)`: a vision model's patch embeddings,
+    before the prompt in every prefill."""
     import numpy as np
     from repro_torch.engine import ReplicaEngine
     from repro_torch.kernels import ops
@@ -1617,6 +1679,8 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     cfg = fit_depth(torch, cfg.scaled(dtype="float32"))
+    fe = front and front(0)
+    n_front = 0 if fe is None else fe.shape[1]
     log(f"  (b) {cfg.name} full width fp32 ({cfg.n_layers} layers, "
         f"{n_global(cfg)} global), attention_impl cuda vs torch")
     model = build_model(cfg)
@@ -1628,9 +1692,10 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
     ops.reset_launch_counts()
     for impl in ("cuda", "torch"):
         with recording_routers() as routes[impl]:
-            logits[impl], caches[impl] = model.prefill(params, toks,
-                                                       attention_impl=impl)
-    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+            logits[impl], caches[impl] = model.prefill(
+                params, toks, frontend_embeds=fe, attention_impl=impl)
+    pos = torch.tensor([n_front + len(prompt)], dtype=torch.int32,
+                       device=device)
     nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
     cache = {k: {kk: {n: torch.nn.functional.pad(
         t, (0, 0, 0, 0, 0, 64)) for n, t in vv.items()}
@@ -1666,7 +1731,7 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8):
         eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=512,
                             attention_impl=impl)
         s = eng.kv.acquire()
-        t, _ = eng.prefill_conversation(s, prompt)
+        t, _ = eng.prefill_conversation(s, prompt, fe)
         nt = np.zeros(2, np.int32)
         em = np.zeros(2, bool)
         nt[s], em[s] = int(t), True
@@ -2097,6 +2162,322 @@ def phase_moe(torch, device, card):
     return recs, launches
 
 
+# --------------------------------------------------------------------------- #
+# phase 14: the vision frontend and the encoder-decoder — internvl2-26b and
+# whisper-small
+# --------------------------------------------------------------------------- #
+VLM, ENCDEC = "internvl2-26b", "whisper-small"
+FRONT_ARCHS = (ENCDEC, VLM)
+
+
+def front_maker(torch, cfg, device, seed=21):
+    """`front(i)`: the i-th seeded (numpy) stub embeddings (1, F, d_model)
+    in cfg's dtype, the same at every call with i: F = encoder_seq frames
+    for an encoder-decoder, frontend_len patches for a vision model."""
+    import numpy as np
+    n = cfg.encoder_seq if cfg.is_encoder_decoder else cfg.frontend_len
+
+    def front(i):
+        x = np.random.RandomState(seed + i).standard_normal(
+            (1, n, cfg.d_model)).astype(np.float32)
+        return torch.from_numpy(x).to(device, cfg.torch_dtype)
+    return front
+
+
+def cross_leaves(torch, eng):
+    from repro_torch.engine.kvcache import cross, leaves
+    return [t.clone() for p, t in leaves(eng.kv.caches) if cross(p)]
+
+
+def encdec_fp32(torch, cfg, device, card, n_decode=8):
+    """(b) whisper-small at full width in fp32 (TF32 off), on seeded
+    frames: a 150-token prefill and one decode step under "cuda" and
+    "torch" — logits within DENSE_LOGIT_RTOL x max(1, max|logit|), K2 and
+    K1 each launched once per decoder layer (the encoder and every
+    cross-attention are torch ops) — and 8 greedy decode steps of a
+    ReplicaEngine pair, equal; the slot's length the prompt's (F14); the
+    cross rows byte-identical before and after an append and a 16-step
+    chunk; then phase 11's graphs against eager, byte-identical."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.scaled(dtype="float32")
+    log(f"  (b) {cfg.name} full width fp32 ({cfg.n_encoder_layers} encoder "
+        f"layers over {cfg.encoder_seq} frames, {cfg.n_layers} decoder "
+        f"layers), attention_impl cuda vs torch")
+    model = build_model(cfg)
+    params = model.init(0, device)
+    front = front_maker(torch, cfg, device)
+    fe = front(0)
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                              DENSE_PROMPT)
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    logits, caches = {}, {}
+    ops.reset_launch_counts()
+    for impl in ("cuda", "torch"):
+        logits[impl], caches[impl] = model.prefill(
+            params, toks, frontend_embeds=fe, attention_impl=impl)
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
+    nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
+    c = caches["torch"]
+    cache = {"self": {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, 64))
+                      for n, t in c["self"].items()}, "cross": c["cross"]}
+    dl = {impl: model.decode_step(params, nxt, cache, pos, kv_lens=pos,
+                                  attention_impl=impl)[0]
+          for impl in ("cuda", "torch")}
+    counts = ops.launch_counts()
+    L = cfg.n_layers
+    want = {"decode_attention": L, "prefill_attention": L, "wkv6": 0,
+            "rglru": 0}
+    if counts != want:
+        raise AssertionError(f"one prefill and one decode step launched "
+                             f"{counts}, not {want}")
+    scale = max(1.0, float(logits["torch"].abs().max()))
+    err_p = max_err(logits["cuda"], logits["torch"])
+    err_d = max_err(dl["cuda"], dl["torch"])
+    log(f"  launches of one prefill + one decode step {counts}")
+    log(f"  logits max|err| prefill {err_p:.3e}, decode {err_d:.3e}, "
+        f"max|logit| {scale:.3f} (tol {DENSE_LOGIT_RTOL} x max(1, "
+        f"max|logit|))")
+    if not (err_p < DENSE_LOGIT_RTOL * scale
+            and err_d < DENSE_LOGIT_RTOL * scale):
+        raise AssertionError(f"{cfg.name}: fp32 logits differ between "
+                             "attention impls")
+    del caches, cache, c, logits, dl
+    streams = {}
+    for impl in ("cuda", "torch"):
+        eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=512,
+                            attention_impl=impl)
+        s = eng.kv.acquire()
+        t, _ = eng.prefill_conversation(s, prompt, fe)
+        if int(eng.kv.lengths[s]) != len(prompt):
+            raise AssertionError(f"slot length {int(eng.kv.lengths[s])} != "
+                                 f"the prompt's {len(prompt)} (F14)")
+        nt = np.zeros(2, np.int32)
+        em = np.zeros(2, bool)
+        nt[s], em[s] = int(t), True
+        seq, _ = eng.decode_steps(nt, em, n_decode)
+        streams[impl] = [int(t)] + [int(x) for x in seq[:, s]]
+        if impl == "cuda":  # the cross rows stay as the prefill left them
+            before = cross_leaves(torch, eng)
+            nt[s] = int(eng.append_prefill(s, prompt[:24])[0])
+            eng.decode_steps(nt, em, 16)
+            same = all(torch.equal(a, b) for a, b in
+                       zip(before, cross_leaves(torch, eng)))
+            log(f"  cross rows ({sum(t.numel() for t in before)} values) "
+                f"byte-identical after an append and 16 decode steps: "
+                f"{same}")
+            if not same:
+                raise AssertionError("an append or a decode step wrote the "
+                                     "cross rows")
+            del before
+        del eng
+    log(f"  greedy tokens cuda  {streams['cuda']}")
+    log(f"  greedy tokens torch {streams['torch']}")
+    if streams["cuda"] != streams["torch"]:
+        raise AssertionError(f"{cfg.name}: greedy tokens differ between "
+                             "attention impls")
+    phase_graphs(torch, cfg, params, card, "14 (b)", front=front,
+                 times=False)  # (c) times the bf16 step
+    del params
+    torch.cuda.empty_cache()
+
+
+class recording_transfers:
+    """While open, record (bytes, length) of every package a slot cache
+    measures (`SlotKVCache.nbytes_of`: each KV transfer's bytes)."""
+
+    def __enter__(self):
+        from repro_torch.engine.kvcache import SlotKVCache
+        self.orig = SlotKVCache.nbytes_of
+        rec = self.rec = []
+        orig = self.orig
+
+        def nbytes_of(kv, package):
+            n = orig(kv, package)
+            rec.append((n, package["length"]))
+            return n
+        SlotKVCache.nbytes_of = nbytes_of
+        return rec
+
+    def __exit__(self, *exc):
+        from repro_torch.engine.kvcache import SlotKVCache
+        SlotKVCache.nbytes_of = self.orig
+        return False
+
+
+def front_serve(torch, cfg, params, card, tag):
+    """(c) / (e) bf16 under ConServe through the CUDA graphs (the server
+    sends each turn-1 its stub embeddings), strict accounting: 8 of 8
+    conversations, one transfer each of kv_bytes_per_token x its length
+    plus, for the encoder-decoder, the cross rows; K1's launches the layers
+    x the graphed decode steps, K2's the layers x 8 turn-1 prefills (a
+    vision model's through their graphs, an encoder-decoder's eagerly).
+    Returns the launches."""
+    from repro_torch.launch.serve import engine_trace
+    n_conv = 8
+    L = cfg.n_layers
+    per_tok = cfg.kv_bytes_per_token()
+    cross_b = (2 * L * cfg.encoder_seq * cfg.n_kv_heads * cfg.head_dim
+               * cfg.torch_dtype.itemsize if cfg.is_encoder_decoder else 0)
+    n_front = 0 if cfg.is_encoder_decoder else cfg.frontend_len
+    with counting_replays() as tally, recording_transfers() as sizes:
+        launches, run = serve_and_count(
+            torch, cfg, params, card, PATH_KERNELS, f"({tag}) ",
+            absent=("wkv6", "rglru"), n_conversations=n_conv)
+    srv = run["srv"]
+    firsts = sorted(c.first_input_len for c in engine_trace(n_conv))
+    lens = sorted(n for _, n in sizes)
+    log(f"  graphs ran {tally['decode']} decode steps, {tally['prefill']} "
+        f"turn-1 prefills and {tally['append']} appends; {srv.n_transfers} "
+        f"transfers of {srv.transfer_bytes:.0f} B: each {cross_b} B of "
+        f"cross rows + {per_tok} B x its length (lengths {lens}; first "
+        f"inputs {firsts} + {n_front} frontend positions)")
+    bad = [(n, k) for n, k in sizes if n != cross_b + per_tok * k]
+    if (srv.n_transfers != n_conv or len(sizes) != n_conv or bad
+            or lens != [n_front + f for f in firsts]):
+        raise AssertionError(f"{srv.n_transfers} transfers {sizes}, not "
+                             f"{n_conv} of {cross_b} + {per_tok} B x "
+                             f"({n_front} + first input)")
+    k1 = run["launches"]["decode_attention"]
+    k2 = run["launches"]["prefill_attention"]
+    if (k1, k2) != (L * tally["decode"], L * n_conv):
+        raise AssertionError(f"K1 {k1} / K2 {k2} launches, not {L} layers x "
+                             f"{tally['decode']} graphed decode steps / "
+                             f"{L} x {n_conv} turn-1 prefills")
+    del run, srv
+    return {"decode_attention": k1, "prefill_attention": k2,
+            "layers": L, "decode_steps": tally["decode"]}
+
+
+def encdec_costs(torch, cfg, params, card, front):
+    """whisper's share of a graphed step in cross-attention, and its eager
+    turn-1 prefill: (1) the 12 layers' cross-attention of 16 slots (one
+    query each over the 1500 cross rows) captured in one graph, device
+    time, against `step_times`' graphed step; (2) a 150-token turn-1
+    prefill's wall time, and the encoder's alone (CUDA events)."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.models.attention import cross_attention
+    from repro_torch.models.encdec import run_encoder
+    eng = ReplicaEngine(cfg, params, n_slots=GRAPH_SLOTS, max_ctx=1024,
+                        attention_impl="cuda")
+    step = step_times(torch, eng, card, front)
+    caches = eng.kv.caches["cross"]
+    g = torch.Generator(device="cuda").manual_seed(0)
+    x = torch.randn(GRAPH_SLOTS, 1, cfg.d_model, generator=g,
+                    device="cuda").to(cfg.torch_dtype)
+    layers = [(blk.cross, {"k": caches["k"][i], "v": caches["v"][i]})
+              for i, blk in enumerate(params.decoder)]
+
+    def make(x):
+        return lambda: [cross_attention(a, cfg, x, kv) for a, kv in layers]
+    nbytes = 2 * caches["k"].numel() * caches["k"].element_size()
+    cross_ms = device_ms(make, (x,), nbytes)
+    log(f"  [{card}] cross-attention of {cfg.n_layers} layers, "
+        f"{GRAPH_SLOTS} slots over {cfg.encoder_seq} rows: {cross_ms:.3f} "
+        f"ms device a step, {100 * cross_ms / (step['graph'] * 1e3):.1f}% "
+        f"of the graphed step's {step['graph'] * 1e3:.3f} ms wall")
+    eng.kv.invalidate_all()
+    rs = np.random.RandomState(4)
+    fe = front(0)
+    walls = []
+    for _ in range(3):
+        s = eng.kv.acquire()
+        walls.append(eng.prefill_conversation(
+            s, rs.randint(0, cfg.vocab_size, DENSE_PROMPT), fe)[1])
+    enc_ms = cuda_ms(lambda: run_encoder(params, cfg, fe), warmup=2,
+                     iters=5, windows=3)
+    log(f"  [{card}] eager turn-1 prefill of {DENSE_PROMPT} tokens: wall "
+        f"{min(walls) * 1e3:.3f} ms (best of 3), the encoder alone "
+        f"{enc_ms:.3f} ms (events)")
+    del eng, caches, layers
+    torch.cuda.empty_cache()
+    return dict(step_ms=step["graph"] * 1e3, cross_ms=cross_ms,
+                prefill_ms=min(walls) * 1e3, encoder_ms=enc_ms)
+
+
+def phase_front(torch, device, card):
+    """Phase 14: whisper-small — (a) K1 and K2 at its heads (12 / 12 x 64,
+    G = 1), (b) fp32 impl parity, F14 and the cross rows, graphs against
+    eager, (c) served in bf16, with its cross-attention's share of the
+    step and its eager prefill; internvl2-26b — (d) fp32 impls and graphs
+    against eager at the depth that fits, (e) served in bf16 at full width
+    and depth. Each model freed before the next. Returns (whisper's bf16
+    kernel records, {arch: served launches})."""
+    import gc
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    log("phase 14: the vision frontend and the encoder-decoder at full "
+        "width — " + ", ".join(FRONT_ARCHS))
+    w, v = get_config(ENCDEC), get_config(VLM)
+    log(f" {ENCDEC}: {w.n_encoder_layers} encoder layers over "
+        f"{w.encoder_seq} frames, {w.n_layers} decoder layers with "
+        f"cross-attention, d_model {w.d_model}, H {w.n_heads} / Hkv "
+        f"{w.n_kv_heads} of {w.head_dim}, vocab {w.vocab_size}")
+    log(f" {VLM}: {v.n_layers} layers, d_model {v.d_model}, H {v.n_heads} "
+        f"/ Hkv {v.n_kv_heads} of {v.head_dim}, d_ff {v.d_ff}, vocab "
+        f"{v.vocab_size}, {v.frontend_len} patch embeddings before the text")
+    recs = dense_kernels(torch, w, k2_lengths=(256, 512))
+    encdec_fp32(torch, w, device, card)
+    gc.collect()
+    log(f"  (c) {w.name} full width {w.dtype}, EngineServer + ConServe, "
+        f"strict accounting")
+    params = build_model(w).init(0, device)
+    launches = {w.name: front_serve(torch, w, params, card, "c")}
+    costs = encdec_costs(torch, w, params, card, front_maker(torch, w, device))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    f32 = v.scaled(dtype="float32")
+    cache_layer = 2 * f32.n_kv_heads * f32.head_dim * 4 * 1024 * GRAPH_SLOTS
+    f32 = fit_depth(torch, f32, per_layer_extra=4 * cache_layer)
+    log(f"  (d) {v.name} fp32 at {f32.n_layers} layers: impls, then graphs")
+    dense_fp32_parity(torch, f32, device, card,
+                      front=front_maker(torch, f32, device))
+    gc.collect()
+    params = build_model(f32).init(0, device)
+    phase_graphs(torch, f32, params, card, "14 (d)",
+                 front=front_maker(torch, f32, device),
+                 times=False)  # (e) times the bf16 step
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"  (e) {v.name} full width {v.dtype} ({v.n_layers} layers), "
+        f"EngineServer + ConServe, strict accounting")
+    params = build_model(v).init(0, device)
+    launches[v.name] = front_serve(torch, v, params, card, "e")
+    from repro_torch.engine import ReplicaEngine
+    eng = ReplicaEngine(v, params, n_slots=GRAPH_SLOTS, max_ctx=1024,
+                        attention_impl="cuda")
+    step_times(torch, eng, card, front_maker(torch, v, device))
+    del eng, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"phase 14 wall {time.perf_counter() - t0:.1f} s")
+    return recs, launches, costs
+
+
+def front_records(recs, launches, costs, vlm_recs=None):
+    """Phase 14's numbers for the kernels' JSON line: for K1 and K2, each
+    model's served launches, whisper's bf16 records at its heads and
+    internvl2's at nemotron-4-15b's (48 / 8 x 128: phase 12 (a)) when that
+    phase ran; whisper's step, cross-attention and prefill costs."""
+    out = {}
+    for name in PATH_KERNELS:
+        out[name] = {ENCDEC: dict(launches=launches[ENCDEC][name],
+                                  **recs[name])}
+        vr = (vlm_recs or {}).get(name, {})
+        out[name][VLM] = dict(launches=launches[VLM][name], **vr)
+    out["whisper_costs_ms"] = costs
+    return out
+
+
 def rotation_sweep(torch, cfg, device, card, values):
     """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
     the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
@@ -2124,6 +2505,10 @@ def main(argv=None) -> int:
     ap.add_argument("--phase13", action="store_true",
                     help="run phases 1-2 and phase 13 (MLA and MoE) alone "
                     "and print its records, without the ok line")
+    ap.add_argument("--phase14", action="store_true",
+                    help="run phases 1-2 and phase 14 (the vision frontend "
+                    "and the encoder-decoder) alone and print its records, "
+                    "without the ok line")
     ap.add_argument("--rotation-sweep", metavar="N,N,...",
                     help="after phases 1-2, serve phase 5b's trace once for "
                     "each rotation_min_chunk given, print each run's "
@@ -2183,6 +2568,12 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"phase13": moe_records(*moe)}))
         return 0
+    if args.phase14:
+        front = front_records(*phase_front(torch, device, card))
+        log(f"chip_smoke --phase14 wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"phase14": front}))
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -2201,8 +2592,11 @@ def main(argv=None) -> int:
     t10 = time.perf_counter()
     compared = phase_compare(torch, cfg, device, card, conserve_run)
     log(f"phase 10 wall {time.perf_counter() - t10:.1f} s")
-    dense = dense_records(*phase_dense(torch, device, card))
+    dense_recs, dense_launches = phase_dense(torch, device, card)
+    dense = dense_records(dense_recs, dense_launches)
     moe = moe_records(*phase_moe(torch, device, card))
+    front = front_records(*phase_front(torch, device, card),
+                          vlm_recs=dense_recs["nemotron-4-15b"])
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
@@ -2219,6 +2613,7 @@ def main(argv=None) -> int:
                                  for run, c in compared.items()}
         k["phase12"] = dense[k["name"]]  # and at each dense model's heads
         k["phase13"] = moe[k["name"]]  # and at the MoE models' (G = 5)
+        k["phase14"] = front[k["name"]]  # whisper's (G = 1), internvl2's
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -1,11 +1,12 @@
 """Architecture config registry of the port: the paper's served model
 (qwen3-0.6b), the reference's dense family (olmo-1b, stablelm-12b,
-nemotron-4-15b, gemma3-12b), rwkv6-3b, recurrentgemma-9b and the two MoE
-models (deepseek-v2-lite-16b with MLA, llama4-scout-17b-a16e) are ported so
-far. `get_config(arch)` returns the full published config and
-`get_reduced(arch)` the family-preserving smoke-test reduction. The two
-architectures the JAX package knows beyond these (`NOT_PORTED`: an
-encoder-decoder and a vision frontend) raise `KeyError`."""
+nemotron-4-15b, gemma3-12b), rwkv6-3b, recurrentgemma-9b, the two MoE
+models (deepseek-v2-lite-16b with MLA, llama4-scout-17b-a16e), the vision
+frontend (internvl2-26b) and the encoder-decoder (whisper-small): every
+architecture the JAX package knows. `get_config(arch)` returns the full
+published config and `get_reduced(arch)` the family-preserving smoke-test
+reduction. `NOT_PORTED` names what the registry would refuse as not ported
+yet; it is empty."""
 from __future__ import annotations
 
 import importlib
@@ -23,10 +24,12 @@ _MODULES = {
     "recurrentgemma-9b": "recurrentgemma_9b",
     "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
     "llama4-scout-17b-a16e": "llama4_scout_17b",
+    "internvl2-26b": "internvl2_26b",
+    "whisper-small": "whisper_small",
 }
 
 # architectures of the reference package that this port does not serve yet
-NOT_PORTED = ("internvl2-26b", "whisper-small")
+NOT_PORTED: tuple = ()
 
 ALL_ARCHS: List[str] = list(_MODULES)
 

@@ -13,8 +13,10 @@ that may travel after the slot is released.
 
 The tree is the model's (`models.transformer`): leaves under "groups" carry
 the pattern's repetitions on a leading axis, (G, n_slots, ...), leaves under
-"rem" do not, (n_slots, ...). Every function here takes a "rem" leaf through
-a (1, n_slots, ...) view of it, so one code path serves both. Two kinds of
+"rem" do not, (n_slots, ...); an encoder-decoder's "self" and "cross"
+leaves (`models.encdec`) carry the decoder layer there, (L, n_slots, ...).
+Every function here takes a "rem" leaf through a (1, n_slots, ...) view of
+it, so one code path serves all. Two kinds of
 leaves sit side by side, as in the reference: growing ones (`GROWING_KEYS`:
 attention K/V and MLA's latent and rope key, one row per token, (…,
 n_slots, max_ctx, ...), where "..." is (Hkv, hd) or MLA's (rank,)) and FIXED
@@ -22,6 +24,16 @@ states (RWKV6's "s", "shift", "cshift"; RG-LRU's "h", "conv"; (…, n_slots,
 ...), the same size whatever the context). A decode step appends to a
 growing leaf at the slot's length and replaces a fixed state; a prefill
 writes growing rows at an offset and replaces a fixed state.
+
+An encoder-decoder's "cross" leaves (the encoder's K/V, (L, n_slots,
+encoder_seq, Hkv, hd)) are fixed too, and only a fresh prefill writes
+them: it replaces them, as `import_slot` does; decode and append never
+fold into them (`fold_decode_step` skips them, and an append's result
+holds none); `export_slot` copies them whole and `nbytes_of` counts them.
+The reference's fold maps over a tree with "cross" against decode updates
+without it and raises (ROADMAP queue 3, F13). A slot's length counts the
+decoder's positions only — the frames are in "cross" (F14) — so the
+server's `written` length is decoder tokens for an encoder-decoder.
 
 A local-attention layer's K/V is only `min(max_ctx, window)` long, and the
 reference writes a slot's rows at its length past that end without a word
@@ -74,13 +86,26 @@ def leaf_at(tree, path: Tuple[str, ...]) -> torch.Tensor:
 
 
 def grouped(path: Tuple[str, ...], t: torch.Tensor) -> torch.Tensor:
-    """A leaf with the repetition axis in front: itself under "groups", a
-    (1, ...) view of a "rem" leaf (writes through it land in the leaf)."""
-    return t if path[0] == "groups" else t.unsqueeze(0)
+    """A leaf with the repetition (or layer) axis in front: itself under
+    "groups", "self" and "cross", a (1, ...) view of a "rem" leaf (writes
+    through it land in the leaf)."""
+    return t.unsqueeze(0) if path[0] == "rem" else t
+
+
+def _slot_axis(path: Tuple[str, ...]) -> int:
+    """The slot axis of a leaf as the tree holds it."""
+    return 0 if path[0] == "rem" else 1
 
 
 def growing(path: Tuple[str, ...]) -> bool:
-    return path[-1] in GROWING_KEYS
+    """One row per token: attention K/V and MLA's latent and rope key,
+    but not an encoder-decoder's "cross" rows."""
+    return path[-1] in GROWING_KEYS and path[0] != "cross"
+
+
+def cross(path: Tuple[str, ...]) -> bool:
+    """An encoder-decoder's encoder K/V: written by a fresh prefill only."""
+    return path[0] == "cross"
 
 
 def _slot_mask(mask: torch.Tensor, ndim: int) -> torch.Tensor:
@@ -104,9 +129,12 @@ def fold_decode_step(caches, updates, lens: torch.Tensor,
     `ReplicaEngine._remaining_vector`).
 
     lens (n_slots,) int and mask (n_slots,) bool are device tensors; no host
-    sync happens here."""
+    sync happens here. An encoder-decoder's "cross" leaves are no update
+    and stay as they are (F13)."""
     ar = torch.arange(mask.shape[0], device=mask.device)
     for path, leaf in leaves(caches):
+        if cross(path):
+            continue
         leaf = grouped(path, leaf)
         up = grouped(path, leaf_at(updates, path))
         if not growing(path):
@@ -126,7 +154,7 @@ def slice_slot_prefix(caches, slot: int, ctx: int):
     length hold stale bytes; callers mask them via kv_lens. Views see later
     in-place writes."""
     def take(path, leaf):
-        ax = 1 if path[0] == "groups" else 0
+        ax = _slot_axis(path)
         idx = (slice(None),) * ax + (slice(slot, slot + 1),)
         return leaf[idx + ((slice(None, ctx),) if growing(path) else ())]
     return map_leaves(take, caches)
@@ -140,7 +168,7 @@ def gather_slot_prefix(caches, slot: torch.Tensor, ctx: int):
     slot = slot.long()
 
     def take(path, leaf):
-        ax = 1 if path[0] == "groups" else 0
+        ax = _slot_axis(path)
         if growing(path):
             leaf = leaf.narrow(ax + 1, 0, min(ctx, leaf.shape[ax + 1]))
         return leaf.index_select(ax, slot)
@@ -155,9 +183,12 @@ def fold_prefill_at(caches, new_caches, slot: torch.Tensor,
     slot axis, so a CUDA graph can write any slot at any offset and the host
     reads nothing. It cannot refuse a region that runs off the buffer
     without a host read, so the caller checks that before (the replica's
-    `_check_prefill_room` and `_prefill_pad`)."""
+    `_check_prefill_room` and `_prefill_pad`). An append's result holds no
+    "cross" leaves, and they are left as they are."""
     slot = slot.long()
     for path, leaf in leaves(caches):
+        if cross(path) and "cross" not in new_caches:
+            continue
         leaf = grouped(path, leaf)
         new = grouped(path, leaf_at(new_caches, path)).to(leaf.dtype)
         if not growing(path):
@@ -174,8 +205,12 @@ def fold_prefill(caches, new_caches, slot: int, offset: int) -> None:
     written region may extend past the slot's live length (bucketed token
     padding); reads are masked via kv_lens. A region that would run off the
     buffer raises — it is never clamped or cut (the replica's
-    `_check_prefill_room` and `_prefill_pad` keep the serve path inside)."""
+    `_check_prefill_room` and `_prefill_pad` keep the serve path inside).
+    An append's result holds no "cross" leaves, and they are left as they
+    are."""
     for path, leaf in leaves(caches):
+        if cross(path) and "cross" not in new_caches:
+            continue
         leaf = grouped(path, leaf)
         new = grouped(path, leaf_at(new_caches, path))
         if not growing(path):

@@ -13,25 +13,37 @@ replica, the CUDA graph of that body, replayed on every later call:
   syncs once per chunk. The graph runs the bucket's n_steps, as the
   reference's scan does; an eager run stops after max(remaining) — frozen
   lanes change nothing, so the two leave the same tokens and caches.
-* Turn-1 prefill (`prefill_conversation`), keyed by the length bucket
-  pad_to (the reference's `_get_prefill`): the tokens padded to the bucket,
-  the logits gathered at the last live position, the greedy argmax on the
-  device and the new K/V folded into the slot by device index.
+* Turn-1 prefill (`prefill_conversation`), keyed (pad_to, n_front) as the
+  reference's `_get_prefill`: the tokens padded to the length bucket after
+  a vision model's n_front patch embeddings (copied into the program's
+  static input buffer before each run), the logits gathered at the last
+  live text position, the greedy argmax on the device and the new K/V —
+  the frontend's positions first — folded into the slot by device index.
 * Append-prefill (`append_prefill`), keyed (pad_to, ctx) (the reference's
   `_get_append`): the slot's own prefix gathered to its ctx bucket by
   device index, the padding masked with kv_lens.
 
-Three cases run the same bodies eagerly, never through a program:
+Four cases run the same bodies eagerly, never through a program:
 F2's exact-length prefill (the bucket would not fit the slot; the
 reference compiles a one-off program there, and a graph used once costs
 more than it saves); every prefill of a model with recurrent layers (RWKV6,
 RG-LRU), which never pads — every position it consumes moves its state —
-as the reference's `_prefill_jittable` keeps them eager; and the prefix
-pool's hit (`_prefill_from_pool`). `prefill_mode="reference"` and
-`decode_step_all_reference` replay the reference paths (full-buffer prefix
-view, host-side sampling, one step per call) as the parity oracles.
-Programs are built lazily, or ahead of time by `warmup_decode`,
-`warmup_prefill` and `warmup=True`.
+and every prefill of an encoder-decoder (padded to its bucket, with the
+logits at the last live position), as the reference's `_prefill_jittable`
+keeps them eager; and the prefix pool's hit (`_prefill_from_pool`). An
+encoder-decoder's decode chunk runs through its program as any other.
+
+`prefill_mode="reference"` and `decode_step_all_reference` replay the
+reference paths (full-buffer prefix view, host-side sampling, one step
+per call) as the parity oracles. Programs are built lazily, or ahead of
+time by `warmup_decode`, `warmup_prefill` and `warmup=True`.
+
+A frontend's embeddings take slot positions only where they enter the
+decoder: a vision model's n_front patches occupy the slot's first rows,
+so its length is n_front + true_len; an encoder-decoder's frames go to the
+fixed "cross" rows, so its length is true_len (the reference counts the
+frames too and then refuses every full-width prefill: ROADMAP queue 3,
+F14), and its frames must number `cfg.encoder_seq` (F16).
 
 With `attention_impl="cuda"` (the default) fresh global prefill attention
 runs in the hand-written kernel K2, global decode attention in K1, the RWKV6
@@ -171,8 +183,10 @@ class ReplicaEngine:
         # Per replica: a graph binds this replica's cache and weights, so
         # unlike the reference's process-wide prefill cache none is shared
         self._fused: Dict[Tuple[int, int], Program] = {}
-        self._prefill: Dict[int, Program] = {}
+        self._prefill: Dict[Tuple[int, int], Program] = {}
         self._append: Dict[Tuple[int, int], Program] = {}
+        # a vision turn-1 program's static patch-embedding input, by its key
+        self._frontend_in: Dict[Tuple, torch.Tensor] = {}
         self._pool = None      # one graph memory pool for all of them
         self._stream = None    # and one capture stream
         self._weights = None   # (name, Parameter), for the address guard
@@ -244,9 +258,9 @@ class ReplicaEngine:
 
     def programs(self) -> Dict[Tuple, Program]:
         """Every program built so far, keyed ("decode", n_steps, ctx),
-        ("prefill", pad_to) or ("append", pad_to, ctx)."""
+        ("prefill", pad_to, n_front) or ("append", pad_to, ctx)."""
         return {**{("decode",) + k: p for k, p in self._fused.items()},
-                **{("prefill", k): p for k, p in self._prefill.items()},
+                **{("prefill",) + k: p for k, p in self._prefill.items()},
                 **{("append",) + k: p for k, p in self._append.items()}}
 
     def graph_pool_bytes(self) -> int:
@@ -310,12 +324,13 @@ class ReplicaEngine:
 
     @torch.no_grad()
     def _prefill_body(self, ins: torch.Tensor, tok: torch.Tensor,
-                      ctx: Optional[int]) -> None:
+                      ctx: Optional[int], fe=None) -> None:
         """A turn-1 prefill (ctx None) or an append against the slot's first
-        ctx rows, on device inputs ins = [slot, true_len, prev, tokens]:
-        the new tokens' K/V (or states) folded into the slot at prev by
-        device index, and the greedy token at true_len - 1 written to tok.
-        Nothing is read back to the host."""
+        ctx rows, on device inputs ins = [slot, true_len, prev, tokens] and
+        a turn-1's frontend embeddings `fe`: the new K/V (or states) folded
+        into the slot at prev by device index, and the greedy token at text
+        position true_len - 1 written to tok. Nothing is read back to the
+        host."""
         slot, true_len, prev = ins[0:1], ins[1:2], ins[2:3]
         kw = {}
         if ctx is not None:
@@ -323,18 +338,27 @@ class ReplicaEngine:
                       start_pos=prev, kv_lens=prev, prefix_start=0)
         logits, new = self.model.prefill(
             self.params, ins[3:][None], logits_at=true_len - 1,
-            attention_impl=self.attention_impl, **kw)
+            frontend_embeds=fe, attention_impl=self.attention_impl, **kw)
         fold_prefill_at(self.kv.caches, new, slot, prev)
         tok.copy_(self._argmax(logits))
 
-    def _make_prefill(self, pad_to: int, ctx: Optional[int]) -> Program:
-        """Buffers of a (append-)prefill program, and its warm-up pass: a
-        full prefill into slot 0, whose cache is saved before and put back
-        after, so the pass leaves every byte as it found it."""
-        prog = Program(("prefill", pad_to) if ctx is None
+    def _make_prefill(self, pad_to: int, ctx: Optional[int],
+                      n_front: int = 0) -> Program:
+        """Buffers of a (append-)prefill program — a turn-1 program with
+        n_front > 0 also holds its static (1, n_front, d_model) frontend
+        input — and its warm-up pass: a full prefill into slot 0, whose
+        cache is saved before and put back after, so the pass leaves every
+        byte as it found it."""
+        fe = None
+        if n_front:
+            fe = torch.zeros((1, n_front, self.cfg.d_model),
+                             dtype=self.cfg.torch_dtype, device=self.device)
+        prog = Program(("prefill", pad_to, n_front) if ctx is None
                        else ("append", pad_to, ctx), 3 + pad_to,
                        torch.zeros(1, dtype=torch.int32, device=self.device),
-                       functools.partial(self._prefill_body, ctx=ctx))
+                       functools.partial(self._prefill_body, ctx=ctx, fe=fe))
+        if fe is not None:
+            self._frontend_in[prog.key] = fe
         zero = torch.zeros(1, dtype=torch.int32, device=self.device)
         with uncounted(), side_stream(self.device):
             saved = gather_slot_prefix(self.kv.caches, zero, self.kv.max_ctx)
@@ -344,11 +368,13 @@ class ReplicaEngine:
             fold_prefill_at(self.kv.caches, saved, zero, zero)  # slot 0, row 0
         return prog
 
-    def _get_prefill(self, pad_to: int) -> Program:
+    def _get_prefill(self, pad_to: int, n_front: int = 0) -> Program:
         """Fetch (or build and capture) the turn-1 program of one length
-        bucket (the reference's `_get_prefill`)."""
-        return self._program(self._prefill, pad_to,
-                             lambda: self._make_prefill(pad_to, None))
+        bucket after n_front frontend positions (the reference's
+        `_get_prefill`)."""
+        return self._program(self._prefill, (pad_to, n_front),
+                             lambda: self._make_prefill(pad_to, None,
+                                                        n_front))
 
     def _get_append(self, pad_to: int, ctx: int) -> Program:
         """Fetch (or build and capture) the append program of one (length
@@ -356,24 +382,34 @@ class ReplicaEngine:
         return self._program(self._append, (pad_to, ctx),
                              lambda: self._make_prefill(pad_to, ctx))
 
+    @property
+    def _eager_prefill(self) -> bool:
+        """A recurrent model or an encoder-decoder: every prefill eager."""
+        return self.exact_prefill or self.cfg.is_encoder_decoder
+
     def _prefill_program(self, true_len: int, pad_to: int,
-                         ctx: Optional[int]) -> Optional[Program]:
+                         ctx: Optional[int], n_front: int = 0
+                         ) -> Optional[Program]:
         """The program a (append-)prefill runs through, or None where it
-        runs eagerly: a recurrent model, or F2's exact length (the bucket
-        would not fit the slot)."""
-        if self.exact_prefill or pad_to != bucket_len(true_len):
+        runs eagerly: a recurrent model, an encoder-decoder, or F2's exact
+        length (the bucket would not fit the slot)."""
+        if self._eager_prefill or pad_to != bucket_len(true_len):
             return None
-        return (self._get_prefill(pad_to) if ctx is None
+        return (self._get_prefill(pad_to, n_front) if ctx is None
                 else self._get_append(pad_to, ctx))
 
     def _run_prefill(self, prog: Optional[Program], host: np.ndarray,
-                     ctx: Optional[int]) -> int:
-        """The token of one (append-)prefill: through its program, or the
-        same body eagerly. The read of the token is the one host sync."""
+                     ctx: Optional[int], fe=None) -> int:
+        """The token of one (append-)prefill, `fe` a turn-1's frontend
+        embeddings: through its program (fe copied into its static input),
+        or the same body eagerly. The read of the token is the one host
+        sync."""
         if prog is not None:
+            if fe is not None:
+                self._frontend_in[prog.key].copy_(fe)
             return int(self._run(prog, host))
         tok = torch.zeros(1, dtype=torch.int32, device=self.device)
-        self._prefill_body(self._tokens(host), tok, ctx)
+        self._prefill_body(self._tokens(host), tok, ctx, fe=fe)
         return int(tok)
 
     def warmup_prefill(self, lengths=None, ctx_limits=None) -> float:
@@ -382,11 +418,17 @@ class ReplicaEngine:
         defaults to every PREFILL_BUCKET that fits max_ctx; turn-1 programs
         are built per length, append programs per reachable (length, ctx)
         pair, `ctx_limits` defaulting to every power-of-two ctx bucket a
-        prefix could occupy (the reference's rule). Returns the seconds
-        spent (also accumulated in `self.compile_s`); 0.0 for a recurrent
-        model, whose prefills run eagerly."""
-        if self.exact_prefill:
+        prefix could occupy (the reference's rule). A vision model's turn-1
+        programs take `cfg.frontend_len` patch embeddings, what the server
+        sends, and a length whose bucket would not fit beside them is left
+        out (such a prefill runs at its exact length, eagerly). Returns the
+        seconds spent (also accumulated in `self.compile_s`); 0.0 for a
+        recurrent model or an encoder-decoder, whose prefills run
+        eagerly."""
+        if self._eager_prefill:
             return 0.0
+        n_front = (self.cfg.frontend_len if self.cfg.frontend != "none"
+                   else 0)
         if lengths is None:
             lengths = [b for b in PREFILL_BUCKETS if b <= self.kv.max_ctx]
         if ctx_limits is None:
@@ -395,7 +437,8 @@ class ReplicaEngine:
         for L in dict.fromkeys(bucket_len(int(x)) for x in lengths):
             if L > self.kv.max_ctx:
                 continue  # such a prefill pads to its exact length, eagerly
-            self._get_prefill(L)
+            if n_front + L <= self.kv.max_ctx:
+                self._get_prefill(L, n_front)
             for C in dict.fromkeys(ctx_bucket(int(c), self.kv.max_ctx)
                                    for c in ctx_limits):
                 # skip (L, C) pairs no live slot could ever reach: the
@@ -423,10 +466,14 @@ class ReplicaEngine:
         `prefix_len` > 0 declares tokens[:prefix_len] a SHARED PREAMBLE and
         ALWAYS splits the prefill at that boundary — turn-1 class on the
         preamble, append class on the delta — pool or no pool, so per-turn
-        token streams are byte-identical pool-on vs pool-off."""
-        if frontend_embeds is not None:
-            raise NotImplementedError("frontend embeds are not ported to "
-                                      "repro_torch yet")
+        token streams are byte-identical pool-on vs pool-off; it does not
+        compose with frontend embeddings.
+
+        `frontend_embeds` (1, F, d_model): a vision model's patch
+        embeddings, which take the slot's first F rows (its length is then
+        F + len(tokens)); an encoder-decoder's frames — exactly
+        `cfg.encoder_seq` of them (F16) — which go to the "cross" rows and
+        take no slot row (its length is len(tokens), F14)."""
         true_len = len(tokens)
         if prefix_len:
             if not 0 < prefix_len < true_len:
@@ -434,20 +481,45 @@ class ReplicaEngine:
                     f"prefill_conversation: prefix_len {prefix_len} must be "
                     f"in (0, {true_len}) — the turn needs a non-empty delta "
                     f"after the shared preamble")
+            if frontend_embeds is not None:
+                raise ValueError(
+                    "prefill_conversation: shared-prefix split does not "
+                    "compose with frontend embeds")
             return self._prefill_split(slot, np.asarray(tokens, np.int32),
                                        int(prefix_len))
-        self._check_prefill_room(slot, true_len)
+        n_front = self._frontend_rows(frontend_embeds)
+        self._check_prefill_room(slot, n_front + true_len)
         self._kernels_ready()
         if self.prefill_mode == "reference":
-            return self._prefill_reference(slot, tokens)
-        pad_to = self._prefill_pad(true_len, self.kv.max_ctx)
-        prog = self._prefill_program(true_len, pad_to, None)  # OFF the clock
+            return self._prefill_reference(slot, tokens, frontend_embeds,
+                                           n_front)
+        pad_to = self._prefill_pad(true_len, self.kv.max_ctx - n_front)
+        prog = self._prefill_program(true_len, pad_to, None,
+                                     n_front)  # OFF the clock
         host = self._prefill_host(slot, tokens, pad_to, 0)
         t0 = time.perf_counter()
-        tok = self._run_prefill(prog, host, None)
-        self.kv.lengths[slot] = true_len
+        tok = self._run_prefill(prog, host, None, frontend_embeds)
+        self.kv.lengths[slot] = n_front + true_len
         dt = self._account_prefill(t0, true_len)
         return np.int32(tok), dt
+
+    def _frontend_rows(self, fe) -> int:
+        """The slot rows a turn-1's frontend embeddings take: a vision
+        model's F patches; none for an encoder-decoder, whose frames go to
+        the "cross" rows (F14) and must number cfg.encoder_seq (F16: the
+        reference's reduced config sends 8 frames to a 16-row cross cache
+        and attends to the 8 zero rows); none without a frontend."""
+        cfg = self.cfg
+        if cfg.is_encoder_decoder:
+            got = None if fe is None else fe.shape[1]
+            if got != cfg.encoder_seq:
+                raise ValueError(
+                    f"{cfg.name}: a turn-1 prefill takes encoder_seq = "
+                    f"{cfg.encoder_seq} frame embeddings, got {got}")
+            return 0
+        if cfg.frontend != "none" and fe is not None:
+            return int(fe.shape[1])
+        return 0
 
     def _prefill_split(self, slot: int, tokens: np.ndarray, prefix_len: int
                        ) -> Tuple[np.int32, float]:
@@ -524,18 +596,20 @@ class ReplicaEngine:
         finally:
             pool.unpin(key)
 
-    def _prefill_reference(self, slot: int, tokens: np.ndarray
+    def _prefill_reference(self, slot: int, tokens: np.ndarray,
+                           frontend_embeds=None, n_front: int = 0
                            ) -> Tuple[np.int32, float]:
         """REFERENCE PATH: eager forward + `write_prefill` + host-side
         sampling. The parity oracle and benchmark baseline."""
         t0 = time.perf_counter()
         true_len = len(tokens)
-        pad_to = self._prefill_pad(true_len, self.kv.max_ctx)
+        pad_to = self._prefill_pad(true_len, self.kv.max_ctx - n_front)
         logits, caches = self.model.prefill(
             self.params, self._padded(tokens, pad_to),
             logits_at=true_len - 1 if pad_to != true_len else None,
+            frontend_embeds=frontend_embeds,
             attention_impl=self.attention_impl)
-        self.kv.write_prefill(slot, caches, true_len)
+        self.kv.write_prefill(slot, caches, n_front + true_len)
         tok = self.sample(logits)[0]
         dt = self._account_prefill(t0, true_len)
         return tok, dt

@@ -4,7 +4,8 @@ with the replica's CUDA graphs and without them.
     python -m repro_torch.launch.profile
            [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|
                    gemma3-12b|rwkv6-3b|recurrentgemma-9b|
-                   deepseek-v2-lite-16b|llama4-scout-17b-a16e]
+                   deepseek-v2-lite-16b|llama4-scout-17b-a16e|
+                   internvl2-26b|whisper-small]
            [--layers N] [--slots 16] [--ctx 300] [--steps 16]
            [--prefill 512]
 
@@ -12,9 +13,10 @@ Builds one decode replica of `--arch` (default qwen3-0.6b; full width,
 bf16, seeded torch init; `--layers` cuts the depth to N layers, widths
 unchanged, for a model whose weights do not fit the card, such as
 llama4-scout-17b-a16e's 200.7 GiB), fills every slot with a `--ctx`-token
-conversation, and traces with `torch.profiler` one ragged decode chunk of
-`--steps` steps over all slots and one turn-1 prefill of `--prefill`
-tokens, each twice: through the same bodies run eagerly
+conversation (after seeded stub frontend embeddings for internvl2-26b's
+256 patches and whisper-small's 1500 frames), and traces with
+`torch.profiler` one ragged decode chunk of `--steps` steps over all
+slots and one turn-1 prefill of `--prefill` tokens, each twice: through the same bodies run eagerly
 (`cuda_graphs=False`) and replayed from the bucket's CUDA graph (built and
 captured by an untraced call first; its capture seconds are printed). For
 each it prints the measured wall time (host clock, ending in
@@ -117,11 +119,21 @@ def main(argv=None):
     eng = ReplicaEngine(cfg, params, n_slots=args.slots, max_ctx=1024,
                         attention_impl="cuda")
     rs = np.random.RandomState(0)
+    n_front = (cfg.encoder_seq if cfg.is_encoder_decoder
+               else cfg.frontend_len if cfg.frontend != "none" else 0)
+
+    def front():
+        """Seeded stub frontend embeddings (None without a frontend)."""
+        if not n_front:
+            return None
+        x = rs.standard_normal((1, n_front, cfg.d_model)).astype(np.float32)
+        return torch.from_numpy(x).to(dev, cfg.torch_dtype)
+
     nt = np.zeros(args.slots, np.int32)
     for _ in range(args.slots):
         s = eng.kv.acquire()
         nt[s] = int(eng.prefill_conversation(
-            s, rs.randint(0, cfg.vocab_size, args.ctx))[0])
+            s, rs.randint(0, cfg.vocab_size, args.ctx), front())[0])
     em = np.ones(args.slots, bool)
     print(f"{torch.cuda.get_device_name(0)}; {cfg.name} {cfg.dtype}, "
           f"{cfg.n_layers} layers, {args.slots} slots at ctx ~{args.ctx}")
@@ -143,25 +155,28 @@ def main(argv=None):
                 f"slots, profiled)", rows, dt, TOP)
 
     toks = rs.randint(0, cfg.vocab_size, args.prefill)
-    if eng.exact_prefill:
+    fe = front()
+    eager = eng.exact_prefill or cfg.is_encoder_decoder
+    if eager:
         print("turn-1 prefill: a recurrent model prefills at the exact "
-              "length, eagerly, in both modes")
-    for graphs, label in MODES[:1] if eng.exact_prefill else MODES:
+              "length, an encoder-decoder at its bucket, eagerly, in both "
+              "modes")
+    for graphs, label in MODES[:1] if eager else MODES:
         eng.cuda_graphs = graphs
         for profiled in (None, False, True):  # warm, timed, traced
             eng.kv.release(0)
             s = eng.kv.acquire()
             torch.cuda.synchronize()
             if profiled is None:
-                eng.prefill_conversation(s, toks)
+                eng.prefill_conversation(s, toks, fe)
             elif not profiled:
-                _, dt = eng.prefill_conversation(s, toks)
+                _, dt = eng.prefill_conversation(s, toks, fe)
                 print(f"turn-1 prefill, {label}, without the profiler: "
                       f"{dt * 1e3:.3f} ms")
             else:
                 ops.reset_launch_counts()
                 (_, dt), rows = traced(
-                    lambda: eng.prefill_conversation(s, toks))
+                    lambda: eng.prefill_conversation(s, toks, fe))
                 _report(f"turn-1 prefill, {label} ({args.prefill} tokens, "
                         f"profiled)", rows, dt, TOP)
     print(f"programs {len(eng.programs())}, compile_s {eng.compile_s:.3f} s, "

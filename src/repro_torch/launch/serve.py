@@ -14,7 +14,7 @@ scales apart.
   python -m repro_torch.launch.serve (--engine | --sim)
          [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|gemma3-12b|
                  rwkv6-3b|recurrentgemma-9b|deepseek-v2-lite-16b|
-                 llama4-scout-17b-a16e]
+                 llama4-scout-17b-a16e|internvl2-26b|whisper-small]
          [--device cuda|cpu] [--slots N] [--n-conversations N]
          [--scheduler NAME] [--gateway] [--scenario NAME] [--seed S]
 
@@ -23,8 +23,12 @@ scales apart.
 qwen3-0.6b) with seeded weights and slots of max_ctx 1024. A replica
 refuses max_ctx > window for a model with local attention, and the reduced
 recurrentgemma-9b's and gemma3-12b's windows are 64: the launcher widens a
-reduced window below max_ctx to max_ctx, and says so. `--device` defaults to cuda and fails
-without a card. `--sim` runs `paper_deployment(scheduler)`.
+reduced window below max_ctx to max_ctx, and says so. A replica refuses an
+encoder-decoder's turn-1 whose frames do not number encoder_seq (F16), and
+the reduced whisper-small sends 8 frames (its frontend_len) to 16 cross
+rows: the launcher sets its frontend_len to encoder_seq, and says so.
+`--device` defaults to cuda and fails without a card. `--sim` runs
+`paper_deployment(scheduler)`.
 (`chip_smoke.py` serves the models at full width.)
 
 --scenario picks a named workload from the scenario library
@@ -128,6 +132,11 @@ def main(argv=None):
             print(f"  {cfg.name} (reduced): window {cfg.window} -> {max_ctx} "
                   f"(a replica needs max_ctx <= window)")
             cfg = cfg.scaled(window=max_ctx)
+        if cfg.is_encoder_decoder and cfg.frontend_len != cfg.encoder_seq:
+            print(f"  {cfg.name} (reduced): frontend_len {cfg.frontend_len} "
+                  f"-> encoder_seq {cfg.encoder_seq} (the frames fill the "
+                  f"cross rows)")
+            cfg = cfg.scaled(frontend_len=cfg.encoder_seq)
         params = build_model(cfg).init(0, device)
         reps = [ReplicaEngine(cfg, params, n_slots=args.slots,
                               max_ctx=max_ctx, replica_id=i, role=role)

@@ -28,6 +28,7 @@ from .layers import apply_rope, param, rope_freqs
 NEG_INF = -1e30
 ATTN_IMPLS = ("torch", "cuda")
 PREFIX_KV_CHUNK = 512  # key chunk of an (append-)prefill against a prefix
+PAD_POS = 2**31 - 1  # the position of a key row that only pads a chunk
 
 
 class Attention(nn.Module):
@@ -113,7 +114,14 @@ def online_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     structurally the flash algorithm, bounding temporaries to
     (B, H, q_chunk, kv_chunk). `kv_lens` (B,) optionally masks per-batch
     ragged valid lengths; `kv_valid` (B, Skv) bool is the general per-entry
-    validity mask (engine slot buffers)."""
+    validity mask (engine slot buffers).
+
+    The keys are padded with zero rows to whole chunks, at position
+    2**31 - 1. A causal mask drops them; without one (`causal=False`: the
+    encoder and cross-attention) the reference lets each add exp(-m) to the
+    softmax's denominator whenever Skv is not a multiple of kv_chunk — 36
+    phantom keys in each of whisper's 1500-frame attentions (ROADMAP queue
+    3, F17). Here they are masked by their position."""
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
     dev = q.device
@@ -130,7 +138,7 @@ def online_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
     if pk:
         k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
         v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
-        kv_pos = torch.cat([kv_pos, kv_pos.new_full((pk,), 2**31 - 1)])
+        kv_pos = torch.cat([kv_pos, kv_pos.new_full((pk,), PAD_POS)])
         if kv_valid is not None:
             kv_valid = torch.nn.functional.pad(kv_valid, (0, pk))
     outs = []
@@ -151,6 +159,8 @@ def online_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
             ok = (kp[None, :] >= 0) & (qp[:, None] >= 0)
             if causal:
                 ok &= kp[None, :] <= qp[:, None]
+            else:  # F17: the pad keys
+                ok &= kp[None, :] != PAD_POS
             if window:
                 ok &= kp[None, :] > qp[:, None] - window
             mask = ok[None, None]
@@ -357,7 +367,7 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
         pad = (-P) % PREFIX_KV_CHUNK
         pstart = (start_pos - P) if prefix_start is None else prefix_start
         kv_pos = torch.cat([pstart + torch.arange(P, device=x.device),
-                            pos.new_full((pad,), 2**31 - 1), pos])
+                            pos.new_full((pad,), PAD_POS), pos])
 
         def keys(prefix, new):
             prefix = torch.nn.functional.pad(
@@ -475,7 +485,7 @@ def mla_prefill(attn: MLA, cfg: ModelConfig, x, start_pos,
         pad = (-P) % PREFIX_KV_CHUNK
         pstart = (start_pos - P) if prefix_start is None else prefix_start
         kv_pos = torch.cat([pstart + torch.arange(P, device=x.device),
-                            pos.new_full((pad,), 2**31 - 1), pos])
+                            pos.new_full((pad,), PAD_POS), pos])
 
         def rows(prefix, new):
             prefix = torch.nn.functional.pad(prefix, (0, 0, 0, pad))
@@ -558,3 +568,30 @@ def mla_decode(attn: MLA, cfg: ModelConfig, x1, position, cache: Dict,
     out = torch.einsum("bshr,rhd->bshd", ctx.to(x1.dtype), attn.w_uv)
     out = out.reshape(B, 1, cfg.n_heads * cfg.v_head_dim)
     return out @ attn.wo, new_cache
+
+
+# --------------------------------------------------------------------------- #
+# Cross attention (whisper's decoder)
+# --------------------------------------------------------------------------- #
+def encode_cross_kv(attn: Attention, cfg: ModelConfig, enc_out):
+    """The encoder output's K/V for one decoder layer, {"k", "v"} (B, F,
+    Hkv, hd): computed once by a fresh prefill and cached as fixed rows."""
+    B, F, _ = enc_out.shape
+    k = (enc_out @ attn.wk).reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ attn.wv).reshape(B, F, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": k, "v": v}
+
+
+def cross_attention(attn: Attention, cfg: ModelConfig, x, enc_kv: Dict):
+    """x: (B, S, D) attends to every one of the encoder's F rows
+    (`enc_kv` {"k", "v"} (B, F, Hkv, hd)), with no mask and no RoPE: the
+    non-causal `online_attention`, torch ops under both impls, as the
+    reference runs it outside its kernels."""
+    B, S, _ = x.shape
+    q = (x @ attn.wq).reshape(B, S, cfg.n_heads, cfg.head_dim)
+    kf = _repeat_kv(enc_kv["k"], cfg.n_heads)
+    vf = _repeat_kv(enc_kv["v"], cfg.n_heads)
+    F = kf.shape[1]
+    out = online_attention(q, kf, vf, torch.arange(S, device=x.device),
+                           torch.arange(F, device=x.device), causal=False)
+    return out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ attn.wo

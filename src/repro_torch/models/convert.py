@@ -12,8 +12,12 @@ process. The tree is nested dicts of numpy arrays in the reference's layout
 MLP), {"ln1", "ln2", "tmix", "cmix"} for RWKV6 and {"ln1", "ln2", "rglru",
 "mlp"} for RG-LRU; "groups" blocks have the pattern's repetitions stacked
 on a leading axis, "rem" blocks do not (`transformer.layer_places`) — and
-the leaves keep their shapes. Each leaf takes its module's dtype (a MoE's
-router stays float32 in a bf16 model).
+the leaves keep their shapes. An encoder-decoder's tree is {"embed",
+"encoder": encoder blocks {"ln1", "attn", "ln2", "mlp"}, "enc_norm",
+"decoder": decoder blocks {"ln1", "attn", "lnx", "cross", "ln2", "mlp"},
+"final_norm", "unembed"}, each stack with the layer on a leading axis; the
+frontends' stubs hold no weights. Each leaf takes its module's dtype (a
+MoE's router stays float32 in a bf16 model).
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 from repro_torch.device import resolve_device
 
 from .config import ModelConfig
-from .transformer import LM, layer_places
+from .model import build_model
+from .transformer import layer_places
 
 
 def _leaves_of(mod) -> Dict[str, Any]:
@@ -49,22 +54,38 @@ def _same_names(dst: Dict, src: Dict, where: str) -> None:
                          f"{only_t}, in the module only {only_m}")
 
 
-def _top_leaves(lm: LM) -> Dict[str, Dict[str, torch.Tensor]]:
-    """embed, final_norm and unembed's parameters under the reference's
-    names ({} for a tied unembedding or a parameter-free norm)."""
-    return {sub: _leaves_of(getattr(lm, sub))
-            for sub in ("embed", "final_norm", "unembed")}
+def _top_names(cfg: ModelConfig):
+    """The tree's entries that are not a stack of layers."""
+    return (("embed", "enc_norm", "final_norm", "unembed")
+            if cfg.is_encoder_decoder else ("embed", "final_norm", "unembed"))
+
+
+def _top_leaves(lm) -> Dict[str, Dict[str, torch.Tensor]]:
+    """embed, final_norm and unembed's parameters (and an encoder-decoder's
+    enc_norm) under the reference's names ({} for a tied unembedding or a
+    parameter-free norm)."""
+    return {sub: _leaves_of(getattr(lm, sub)) for sub in _top_names(lm.cfg)}
+
+
+def _stacks(lm):
+    """(the tree's place of each layer, its block): ((sec, key, g), block)
+    for a decoder-only LM (`transformer.layer_places`), ((stack, None, i),
+    block) for an encoder-decoder's "encoder" and "decoder"."""
+    if lm.cfg.is_encoder_decoder:
+        return [((sec, None, i), b) for sec in ("encoder", "decoder")
+                for i, b in enumerate(getattr(lm, sec))]
+    return list(zip(layer_places(lm.cfg), lm.blocks))
 
 
 @torch.no_grad()
 def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
-                      device=None) -> LM:
-    """Build the port's LM on `device` (default "cuda") from a params tree of
-    numpy arrays, unstacking the leading layer axis into one Block per
-    layer. Every leaf must match the module's shape, and the two must hold
-    the same leaves (a leaf on one side only raises, naming it); dtypes
-    follow cfg."""
-    lm = LM(cfg, resolve_device(device))
+                      device=None):
+    """Build the port's model (`Model.module`) on `device` (default
+    "cuda") from a params tree of numpy arrays, unstacking the leading
+    layer axis into one block per layer. Every leaf must match the module's
+    shape, and the two must hold the same leaves (a leaf on one side only
+    raises, naming it); dtypes follow cfg."""
+    lm = build_model(cfg).module(resolve_device(device))
 
     def load(dst: Dict[str, Any], src: Dict[str, Any], where: str,
              g: Optional[int]):
@@ -83,14 +104,16 @@ def params_from_numpy(tree: Dict[str, Any], cfg: ModelConfig,
             t.copy_(torch.from_numpy(np.array(arr, dtype=np.float32)))
 
     load(_top_leaves(lm), {sub: tree.get(sub, {}) for sub in
-                           ("embed", "final_norm", "unembed")}, "", None)
-    for (sec, key, g), block in zip(layer_places(cfg), lm.blocks):
-        load(_leaves_of(block), tree[sec][key], f"{sec}.{key}", g)
+                           _top_names(cfg)}, "", None)
+    for (sec, key, g), block in _stacks(lm):
+        node = tree[sec] if key is None else tree[sec][key]
+        load(_leaves_of(block), node, sec if key is None else
+             f"{sec}.{key}", g)
     return lm
 
 
 @torch.no_grad()
-def params_to_numpy(lm: LM) -> Dict[str, Any]:
+def params_to_numpy(lm) -> Dict[str, Any]:
     """The reverse of `params_from_numpy`: the reference's tree, as float32
     numpy arrays, with the layers restacked under "groups"/"p{j}" and the
     remainder under "rem"/"p{j}"; a module without a leaf (a
@@ -106,10 +129,13 @@ def params_to_numpy(lm: LM) -> Dict[str, Any]:
                 for n, v in per[0].items()}
 
     by_key: Dict[tuple, list] = {}
-    for (sec, key, _), b in zip(layer_places(lm.cfg), lm.blocks):
+    for (sec, key, _), b in _stacks(lm):
         by_key.setdefault((sec, key), []).append(to_np(_leaves_of(b)))
     tree: Dict[str, Any] = to_np(_top_leaves(lm))
     for (sec, key), per in by_key.items():
+        if key is None:  # an encoder-decoder's stack
+            tree[sec] = stack(per)
+            continue
         tree.setdefault(sec, {})[key] = (stack(per) if sec == "groups"
                                          else per[0])
     return tree

@@ -180,6 +180,17 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(seq: int, dim: int, dtype, device=None):
+    """Whisper-style fixed sinusoidal embeddings (seq, dim): row p is
+    [sin(p * inv), cos(p * inv)] with inv = exp(-(0, 2, ..) / dim *
+    ln 10000), computed in fp32 and cast to `dtype`."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    inv = torch.exp(-torch.arange(0, dim, 2, dtype=torch.float32,
+                                  device=device) / dim * math.log(10000.0))
+    ang = pos * inv[None, :]
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1).to(dtype)
+
+
 # --------------------------------------------------------------------------- #
 # Embedding / unembedding
 # --------------------------------------------------------------------------- #
@@ -198,4 +209,4 @@ def unembed(embed_w, h, unembed_w=None):
 __all__ = ["param", "init_params", "rmsnorm", "layernorm", "nonparametric_ln",
            "RMSNorm", "LayerNorm", "NonparametricLN", "make_norm", "gelu",
            "squared_relu", "ACTIVATIONS", "MLP", "apply_mlp", "rope_freqs",
-           "apply_rope", "embed", "unembed"]
+           "apply_rope", "sinusoidal_positions", "embed", "unembed"]

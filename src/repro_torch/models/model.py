@@ -1,5 +1,7 @@
 """Model facade: one object per ModelConfig exposing init, the slot cache
-and the two serving entry points — prefill and single-token decode."""
+and the two serving entry points — prefill and single-token decode — for
+the decoder-only families (`transformer.LM`) and the encoder-decoder
+(`encdec.EncDec`) alike."""
 from __future__ import annotations
 
 from typing import Any, Dict, Tuple
@@ -8,7 +10,7 @@ import torch
 
 from repro_torch.device import resolve_device
 
-from . import transformer
+from . import encdec, transformer
 from .config import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_MLA, RGLRU, RWKV6,
                      ModelConfig)
 from .layers import init_params
@@ -52,22 +54,33 @@ class Model:
         transformer.check_ported(cfg)
         self.cfg = cfg
 
-    def init(self, seed: int = 0, device=None) -> transformer.LM:
+    def module(self, device) -> torch.nn.Module:
+        """The uninitialised module: an `EncDec` for an encoder-decoder,
+        else an `LM`."""
+        cls = encdec.EncDec if self.cfg.is_encoder_decoder else transformer.LM
+        return cls(self.cfg, device)
+
+    def init(self, seed: int = 0, device=None) -> torch.nn.Module:
         """Seeded weights on `device` (default "cuda"; raises without a card
         unless device="cpu")."""
-        return init_params(transformer.LM(self.cfg, resolve_device(device)),
-                           seed)
+        return init_params(self.module(resolve_device(device)), seed)
 
     def init_cache(self, batch: int, ctx: int, device=None) -> Dict[str, Any]:
         """Zeroed slot cache in the JAX package's tree (`lm_cache_skeleton`):
         {"groups": {"p{j}": leaves with the pattern's repetitions on a
         leading axis}, "rem": {"p{j}": leaves}} — see `transformer` for the
-        layering and `layer_cache_shapes` for each kind's leaves."""
+        layering and `layer_cache_shapes` for each kind's leaves; an
+        encoder-decoder's is {"self" | "cross": {"k", "v"}} with the decoder
+        layer on the leading axis (`encdec.cache_shapes`)."""
         cfg = self.cfg
         dev = resolve_device(device)
-        pat, n_groups, rem = cfg.pattern_groups()
         z = lambda lead, spec: torch.zeros(  # noqa: E731
             lead + spec[0], dtype=spec[1], device=dev)
+        if cfg.is_encoder_decoder:
+            return {sec: {n: z((), spec) for n in ("k", "v")}
+                    for sec, spec in encdec.cache_shapes(cfg, batch,
+                                                         ctx).items()}
+        pat, n_groups, rem = cfg.pattern_groups()
         tree: Dict[str, Any] = {}
         if n_groups:
             tree["groups"] = {
@@ -84,19 +97,23 @@ class Model:
     @torch.no_grad()
     def prefill(self, params, tokens, *, caches=None, start_pos: int = 0,
                 kv_lens=None, prefix_start=None, logits_at=None,
-                attention_impl: str = "torch"):
+                frontend_embeds=None, attention_impl: str = "torch"):
         """(logits (B,V), caches_out). caches=None: fresh turn-1 prefill;
         otherwise append-prefill against the cached prefix (engine mode:
         prefix_start=0 with kv_lens masking the padded buffer). A recurrent
         layer takes its state from `caches` and reads no kv_lens.
-        `attention_impl="cuda"` sends fresh global prefill attention through
-        K2, the RWKV WKV recurrence through K3 and the RG-LRU recurrence
-        through K4."""
-        return transformer.lm_prefill(params, self.cfg, tokens, caches=caches,
-                                      start_pos=start_pos, kv_lens=kv_lens,
-                                      prefix_start=prefix_start,
-                                      logits_at=logits_at,
-                                      attention_impl=attention_impl)
+        `frontend_embeds` (B, F, D): a vision model's patch embeddings,
+        before the tokens; an encoder-decoder's frames, which a fresh
+        prefill encodes. `attention_impl="cuda"` sends fresh global prefill
+        attention through K2, the RWKV WKV recurrence through K3 and the
+        RG-LRU recurrence through K4."""
+        fn = (encdec.encdec_prefill if self.cfg.is_encoder_decoder
+              else transformer.lm_prefill)
+        return fn(params, self.cfg, tokens, caches=caches,
+                  start_pos=start_pos, kv_lens=kv_lens,
+                  prefix_start=prefix_start, logits_at=logits_at,
+                  frontend_embeds=frontend_embeds,
+                  attention_impl=attention_impl)
 
     @torch.no_grad()
     def decode_step(self, params, token, caches, position, kv_lens=None,
@@ -106,19 +123,25 @@ class Model:
         replaces. `ctx_limit` bounds kv_lens and trims the cache read.
         `attention_impl="cuda"` serves global decode attention through K1
         (local attention and the recurrent decode steps are torch ops under
-        both impls)."""
-        return transformer.lm_decode(params, self.cfg, token, caches,
-                                     position, kv_lens=kv_lens,
-                                     ctx_limit=ctx_limit,
-                                     attention_impl=attention_impl)
+        both impls). An encoder-decoder's updates are its "self" rows only;
+        its "cross" rows are read, never updated."""
+        fn = (encdec.encdec_decode if self.cfg.is_encoder_decoder
+              else transformer.lm_decode)
+        return fn(params, self.cfg, token, caches, position, kv_lens=kv_lens,
+                  ctx_limit=ctx_limit, attention_impl=attention_impl)
 
 
 def merge_decode_cache(caches, updates):
     """Fold one decode step's updates into the caches: K/V concatenate along
-    the length axis (axis 2 under "groups", behind the repetition axis; axis
-    1 under "rem"), fixed states are replaced. Used by simple rollout loops;
-    the serving engine writes into slot buffers in place instead
+    the length axis (axis 2 under "groups" and an encoder-decoder's "self",
+    behind the layer axis; axis 1 under "rem"), fixed states are replaced,
+    and an encoder-decoder's "cross" rows are kept. Used by simple rollout
+    loops; the serving engine writes into slot buffers in place instead
     (repro_torch.engine.kvcache)."""
+    if "self" in caches:
+        return {"self": {n: torch.cat([leaf, updates["self"][n].to(
+            leaf.dtype)], dim=2) for n, leaf in caches["self"].items()},
+            "cross": caches["cross"]}
     return {sec: {key: {
         n: (torch.cat([leaf, updates[sec][key][n].to(leaf.dtype)],
                       dim=2 if sec == "groups" else 1)

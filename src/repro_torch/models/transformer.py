@@ -41,20 +41,34 @@ MOE_PATTERNS = ((ATTN_GLOBAL,), MLA_PATTERN)
 
 
 def check_ported(cfg: ModelConfig) -> None:
-    """Raise NotImplementedError for a configuration the port does not serve
-    yet, naming what is missing. It serves four families: decoders with
+    """Raise NotImplementedError for a configuration the port does not
+    serve, naming what is missing. It serves six families: decoders with
     GQA or MLA attention — the pattern (global), (local x 5, global) or
     (MLA), any of the norms rmsnorm, layernorm and nonparametric_ln, the
     activations silu, squared_relu and gelu, a gated MLP or not, tied
     embeddings or not, qk-norm or not (qwen3-0.6b, olmo-1b, stablelm-12b,
     nemotron-4-15b, gemma3-12b), and with the pattern (global) or (MLA) the
     grouped-capacity MoE in place of the MLP (llama4-scout-17b-a16e,
-    deepseek-v2-lite-16b); attention-free RWKV6 with LayerNorm and untied
-    embeddings (rwkv6-3b), whose FFN is the channel-mix; and the Griffin
-    hybrid — the pattern (RG-LRU, RG-LRU, local attention) with RMSNorm, a
-    gelu gated MLP, untied embeddings and no qk-norm (recurrentgemma-9b).
-    Not yet: encoder-decoder and frontends."""
-    if cfg.block_pattern == (RWKV6,):
+    deepseek-v2-lite-16b); the vision frontend's stub patch embeddings
+    before the text of a (global) dense decoder (internvl2-26b);
+    attention-free RWKV6 with LayerNorm and untied embeddings (rwkv6-3b),
+    whose FFN is the channel-mix; the Griffin hybrid — the pattern (RG-LRU,
+    RG-LRU, local attention) with RMSNorm, a gelu gated MLP, untied
+    embeddings and no qk-norm (recurrentgemma-9b); and the encoder-decoder
+    (`models.encdec`) with the audio stub's frames, global attention,
+    LayerNorm, a gelu MLP without a gate, untied embeddings and no qk-norm
+    (whisper-small)."""
+    if cfg.is_encoder_decoder:
+        family = (("block_pattern", cfg.block_pattern, ((ATTN_GLOBAL,),)),
+                  ("norm", cfg.norm, ("layernorm",)),
+                  ("activation", cfg.activation, ("gelu",)),
+                  ("gated_mlp", cfg.gated_mlp, (False,)),
+                  ("tie_embeddings", cfg.tie_embeddings, (False,)),
+                  ("qk_norm", cfg.qk_norm, (False,)),
+                  ("n_experts", cfg.n_experts, (0,)),
+                  ("frontend of an encoder-decoder", cfg.frontend,
+                   ("audio",)))
+    elif cfg.block_pattern == (RWKV6,):
         family = (("norm", cfg.norm, ("layernorm",)),
                   ("tie_embeddings", cfg.tie_embeddings, (False,)))
     elif cfg.block_pattern == HYBRID_PATTERN:
@@ -71,9 +85,13 @@ def check_ported(cfg: ModelConfig) -> None:
     if cfg.n_experts:
         family += (("block_pattern of a MoE", cfg.block_pattern,
                     MOE_PATTERNS),)
-    common = (("is_encoder_decoder", cfg.is_encoder_decoder, (False,)),
-              ("frontend", cfg.frontend, ("none",)))
-    missing = [f"{what} {got!r}" for what, got, want in family + common
+    if not cfg.is_encoder_decoder:
+        family += (("frontend", cfg.frontend, ("none", "vision")),)
+    if cfg.frontend == "vision":
+        family += (("block_pattern with a vision frontend", cfg.block_pattern,
+                    ((ATTN_GLOBAL,),)),
+                   ("n_experts with a vision frontend", cfg.n_experts, (0,)))
+    missing = [f"{what} {got!r}" for what, got, want in family
                if got not in want]
     if missing:
         raise NotImplementedError(
@@ -140,10 +158,21 @@ def lm_logits(lm: LM, h):
 
 def lm_hidden(lm: LM, cfg: ModelConfig, tokens, *, caches=None,
               start_pos: int = 0, kv_lens=None, prefix_start=None,
-              attention_impl: str = "torch"):
+              frontend_embeds=None, attention_impl: str = "torch"):
     """Run the stack over (B, S) tokens. Returns (post-final-norm hidden
-    (B, S, D), the new tokens' caches as a tree)."""
+    (B, S, D), the new tokens' caches as a tree).
+
+    A vision model's `frontend_embeds` (B, F, D) — the stub's patch
+    embeddings — go before the tokens' embeddings and occupy the first F
+    positions from `start_pos` (RoPE included); their K/V are in the
+    caches (F + S rows), and their rows are dropped from the hidden
+    states."""
     h = embed(lm.embed.w, cfg, tokens).to(cfg.torch_dtype)
+    n_front = 0
+    if cfg.frontend != "none" and frontend_embeds is not None:
+        n_front = frontend_embeds.shape[1]
+        h = torch.cat([frontend_embeds.to(h.device, cfg.torch_dtype), h],
+                      dim=1)
     outs = []
     for i, block in enumerate(lm.blocks):
         prefix = None if caches is None else layer_cache(cfg, caches, i)
@@ -151,27 +180,34 @@ def lm_hidden(lm: LM, cfg: ModelConfig, tokens, *, caches=None,
                               kv_lens=kv_lens, prefix_start=prefix_start,
                               attention_impl=attention_impl)
         outs.append(co)
-    return lm.final_norm(h), stack_layers(cfg, outs)
+    return lm.final_norm(h)[:, n_front:], stack_layers(cfg, outs)
+
+
+def logits_of(h, logits_at):
+    """The hidden row whose logits a prefill returns: the last (logits_at
+    None), one index for the batch, or one index per sequence."""
+    if logits_at is None:
+        return h[:, -1]
+    if not torch.is_tensor(logits_at) or logits_at.dim() == 0:
+        return h[:, int(logits_at)]
+    return h[torch.arange(h.shape[0], device=h.device),
+             logits_at.to(h.device).long()]
 
 
 def lm_prefill(lm: LM, cfg: ModelConfig, tokens, *, caches=None,
                start_pos: int = 0, kv_lens=None, prefix_start=None,
-               logits_at=None, attention_impl: str = "torch"):
+               logits_at=None, frontend_embeds=None,
+               attention_impl: str = "torch"):
     """Prefill: returns (logits (B,V), caches_out). logits_at selects the
-    position whose logits are returned (the engine passes true_len-1 when
-    the token batch is right-padded to a bucket; default: last position)."""
+    text position whose logits are returned (the engine passes true_len-1
+    when the token batch is right-padded to a bucket; default: last
+    position); a frontend's positions are not counted."""
     h, caches_out = lm_hidden(lm, cfg, tokens, caches=caches,
                               start_pos=start_pos, kv_lens=kv_lens,
                               prefix_start=prefix_start,
+                              frontend_embeds=frontend_embeds,
                               attention_impl=attention_impl)
-    if logits_at is None:
-        hh = h[:, -1]
-    elif not torch.is_tensor(logits_at) or logits_at.dim() == 0:
-        hh = h[:, int(logits_at)]
-    else:  # per-sequence gather
-        hh = h[torch.arange(h.shape[0], device=h.device),
-               logits_at.to(h.device).long()]
-    return lm_logits(lm, hh), caches_out
+    return lm_logits(lm, logits_of(h, logits_at)), caches_out
 
 
 def lm_decode(lm: LM, cfg: ModelConfig, token, caches, position,

@@ -129,32 +129,48 @@ def test_config_matches_reference(arch):
 
 
 def test_registry_keeps_only_the_four_still_missing():
-    """The registry refuses what is still missing: since the MoE models
-    were ported, two architectures (an encoder-decoder and a vision
-    frontend), by name."""
-    assert set(NOT_PORTED) == {"internvl2-26b", "whisper-small"}
-    for arch in NOT_PORTED:
-        with pytest.raises(KeyError, match="not ported"):
-            get_config(arch)
+    """Since the vision frontend and the encoder-decoder were ported,
+    nothing is missing: `NOT_PORTED` is empty and every architecture of
+    the reference's registry resolves to the reference's config."""
+    from repro.configs import ALL_ARCHS as JAX_ARCHS
+    from repro_torch.configs import ALL_ARCHS
+    assert NOT_PORTED == ()
+    assert set(ALL_ARCHS) == set(JAX_ARCHS) and len(ALL_ARCHS) == 11
+    for arch in JAX_ARCHS:
+        assert _as_config(type(jax_config(arch)), get_config(arch)) == \
+            jax_config(arch)
 
 
 @pytest.mark.parametrize("arch,what", [
     ("deepseek-v2-lite-16b", "MLA"), ("llama4-scout-17b-a16e", "MoE"),
     ("whisper-small", "is_encoder_decoder"), ("internvl2-26b", "frontend")])
 def test_check_ported_still_refuses(arch, what):
-    """Encoder-decoder and frontends stay refused, by name; MLA and MoE,
-    refused until they were ported, now build (the reduced config, with the
-    latent cache or the MoE in every block)."""
+    """MLA, MoE, the encoder-decoder and the vision frontend, each refused
+    until it was ported, now build from the reference's reduced config:
+    the latent cache or the MoE in every block; whisper's encoder and
+    decoder stacks with a "cross" cache section beside "self"; internvl2's
+    dense LM. Combinations still not ported stay refused, by name."""
     from repro_torch.models.config import ModelConfig
     cfg = _as_config(ModelConfig, jax_reduced(arch))
+    lm = build_model(cfg).init(0, "cpu")
     if what in ("MLA", "MoE"):
-        lm = build_model(cfg).init(0, "cpu")
         assert all(hasattr(b, "moe") and not hasattr(b, "mlp")
                    for b in lm.blocks)
         assert (what == "MLA") == hasattr(lm.blocks[0].attn, "w_uk")
         return
-    with pytest.raises(NotImplementedError, match=what):
-        build_model(cfg)
+    cache = build_model(cfg).init_cache(2, 32, "cpu")
+    if what == "is_encoder_decoder":
+        assert len(lm.encoder) == cfg.n_encoder_layers
+        assert set(cache) == {"self", "cross"}
+        assert tuple(cache["cross"]["k"].shape) == (
+            cfg.n_layers, 2, cfg.encoder_seq, cfg.n_kv_heads, cfg.head_dim)
+        with pytest.raises(NotImplementedError, match="gated_mlp"):
+            build_model(cfg.scaled(gated_mlp=True))
+    else:
+        assert cfg.frontend == "vision" and set(cache) == {"groups"}
+        with pytest.raises(NotImplementedError, match="vision frontend"):
+            build_model(cfg.scaled(block_pattern=("attn_local",) * 5
+                                   + ("attn_global",)))
 
 
 @pytest.mark.parametrize("arch", ARCHS)

@@ -43,7 +43,9 @@ caches byte-identical through a ragged chunk, a slot joining, an append and
 a bucket captured after a kill and rejoin — the launches each replay
 counts, the cache unchanged by a capture, the refusal of a moved tensor,
 and graphed prefill and appends against the reference path byte for
-byte."""
+byte; whisper-small's decode chunk (its cross-attention and its
+sinusoidal row in the graph) and internvl2-26b's turn-1 prefill with its
+patch embeddings (in the program's static input), graph against eager."""
 import numpy as np
 import pytest
 
@@ -97,7 +99,9 @@ def _rand(dev, dtype, seed, shape):
                                      # first odd G above 1), and G = 5 at
                                      # D = 16, 160 and 240
                                      (40, 8, 128), (5, 1, 16), (10, 2, 160),
-                                     (5, 1, 240)])
+                                     (5, 1, 240),
+                                     # whisper-small's (G = 1 at D = 64)
+                                     (12, 12, 64)])
 def test_cuda_decode_kernel_matches_plain(cuda, dtype, H, Hkv, D):
     """Ragged lengths 1, S, and longer than the trimmed read; the cache is a
     strided view of a longer buffer; the new token rides as a second
@@ -203,6 +207,8 @@ def test_cuda_decode_kernel_graph_replay_equals_eager(cuda):
     (1, 32, 8, 160, 0), (200, 48, 8, 128, 0), (1024, 48, 8, 128, 0),
     (200, 16, 8, 240, 0), (1024, 16, 8, 240, 0), (31, 16, 8, 240, 0),
     (33, 16, 8, 240, 0), (300, 16, 8, 240, 96), (256, 16, 16, 128, 0),
+    # whisper-small's decoder (12 / 12 x 64), ragged around its tiles
+    (150, 12, 12, 64, 0), (256, 12, 12, 64, 0), (65, 12, 12, 64, 0),
     # llama4-scout's heads (G = 5), ragged around the tiles
     (1, 40, 8, 128, 0), (65, 40, 8, 128, 0), (200, 40, 8, 128, 0),
     (512, 40, 8, 128, 0), (300, 40, 8, 128, 96)])
@@ -768,7 +774,7 @@ def test_program_launch_counts_per_replay(cuda):
     eng.warmup_prefill(lengths=(64,), ctx_limits=(64,))
     assert sum(ops.launch_counts().values()) == 0
     assert eng._fused[(8, 64)].launches == {"decode_attention": 8 * L}
-    assert eng._prefill[64].launches == {"prefill_attention": L}
+    assert eng._prefill[(64, 0)].launches == {"prefill_attention": L}
     assert eng._append[(64, 64)].launches == {}
     s = eng.kv.acquire()
     t, _ = eng.prefill_conversation(s, np.arange(5, 50, dtype=np.int32))
@@ -906,3 +912,76 @@ def test_moe_body_in_a_cuda_graph_equals_eager(cuda, dtype, arch):
         graph.replay()
         torch.cuda.synchronize()
         assert torch.equal(out, apply_moe(moe, cfg, x))
+
+
+def _frames(dev, cfg, seed):
+    """Seeded stub frontend embeddings (1, F, d_model): an encoder-decoder's
+    encoder_seq frames, a vision model's frontend_len patches."""
+    n = cfg.encoder_seq if cfg.is_encoder_decoder else cfg.frontend_len
+    return _rand(dev, cfg.dtype, seed, (1, n, cfg.d_model))
+
+
+@pytest.mark.gpu
+def test_encdec_decode_chunk_graph_equals_eager(cuda):
+    """Reduced whisper-small in fp32 (TF32 off; frontend_len set to its
+    encoder_seq, F16): two slots prefilled (eagerly, as every
+    encoder-decoder prefill), then a ragged decode chunk, an append and a
+    second chunk through the CUDA graphs and through the same bodies run
+    eagerly: tokens and caches, cross rows included, byte-identical."""
+    cfg = get_reduced("whisper-small")
+    cfg = cfg.scaled(frontend_len=cfg.encoder_seq)
+    params = build_model(cfg).init(0, cuda)
+    out = []
+    for graphs in (True, False):
+        eng = ReplicaEngine(cfg, params, n_slots=4, max_ctx=256,
+                            attention_impl="cuda", cuda_graphs=graphs)
+        nt, em = np.zeros(4, np.int32), np.zeros(4, bool)
+        for i, n in enumerate((37, 90)):
+            s = eng.kv.acquire()
+            nt[s], em[s] = int(eng.prefill_conversation(
+                s, np.arange(3 + n, 3 + 2 * n, dtype=np.int32),
+                _frames(cuda, cfg, i))[0]), True
+        rem = np.where(em, [7, 3, 0, 0], 0).astype(np.int32)
+        seq1, _ = eng.decode_steps(nt, em, rem)
+        nt[0] = int(eng.append_prefill(0, np.arange(60, 75,
+                                                    dtype=np.int32))[0])
+        seq2, _ = eng.decode_steps(nt, em, 4)
+        out.append((seq1, seq2, _caches(eng), eng.programs()))
+    (g1, g2, gc, gp), (e1, e2, ec, _) = out
+    assert any(k[0] == "decode" and p.graph is not None
+               for k, p in gp.items())
+    assert not any(k[0] != "decode" for k in gp)  # prefills stay eager
+    np.testing.assert_array_equal(g1, e1)
+    np.testing.assert_array_equal(g2, e2)
+    assert all(torch.equal(a, b) for a, b in zip(gc, ec))
+
+
+@pytest.mark.gpu
+def test_vlm_prefill_with_patches_graph_equals_eager(cuda):
+    """Reduced internvl2-26b in fp32 (TF32 off): turn-1 prefills with
+    their patch embeddings through the (pad_to, n_front) program's graph —
+    the patches copied into its static input — and through the same body
+    run eagerly, then an append and a decode chunk: tokens and caches
+    byte-identical, and the slot holds n_front + true_len."""
+    cfg = get_reduced("internvl2-26b")
+    params = build_model(cfg).init(0, cuda)
+    out = []
+    for graphs in (True, False):
+        eng = ReplicaEngine(cfg, params, n_slots=4, max_ctx=256,
+                            attention_impl="cuda", cuda_graphs=graphs)
+        nt, em = np.zeros(4, np.int32), np.zeros(4, bool)
+        for i, n in enumerate((37, 20)):  # both in the 64 bucket
+            s = eng.kv.acquire()
+            nt[s], em[s] = int(eng.prefill_conversation(
+                s, np.arange(3 + n, 3 + 2 * n, dtype=np.int32),
+                _frames(cuda, cfg, i))[0]), True
+            assert int(eng.kv.lengths[s]) == cfg.frontend_len + n
+        nt[0] = int(eng.append_prefill(0, np.arange(60, 75,
+                                                    dtype=np.int32))[0])
+        seq, _ = eng.decode_steps(nt, em, 4)
+        out.append((nt.copy(), seq, _caches(eng), eng.programs()))
+    (gt, gs, gc, gp), (et, es, ec, _) = out
+    assert gp[("prefill", 64, cfg.frontend_len)].graph is not None
+    np.testing.assert_array_equal(gt, et)
+    np.testing.assert_array_equal(gs, es)
+    assert all(torch.equal(a, b) for a, b in zip(gc, ec))

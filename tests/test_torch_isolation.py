@@ -41,7 +41,8 @@ def test_port_sources_are_found():
     assert {"replica.py", "server.py", "decode_attention.py",
             "prefill_attention.py", "wkv6.py", "rglru.py", "recurrent.py",
             "recurrentgemma_9b.py", "chip_smoke.py", "baselines.py",
-            "simulator.py", "gateway.py", "driver.py"} <= names
+            "simulator.py", "gateway.py", "driver.py", "encdec.py",
+            "internvl2_26b.py", "whisper_small.py"} <= names
     assert len(FILES) > 25
 
 

@@ -72,8 +72,9 @@ def test_config_matches_reference():
 
 
 def test_unported_arch_raises_keyerror():
-    with pytest.raises(KeyError, match="not ported"):
-        get_config("whisper-small")
+    """Every reference architecture resolves, whisper-small the last to be
+    ported; an unknown name still raises KeyError."""
+    assert get_config("whisper-small").is_encoder_decoder
     with pytest.raises(KeyError, match="unknown arch"):
         get_config("no-such-model")
 

@@ -117,7 +117,7 @@ def test_prefill_compile_time_off_the_clock(models):
     spent = eng.compile_s
     assert spent > 0                      # bucket 64 built...
     assert dt_cold + spent <= wall        # ...but never inside measured dt
-    assert set(eng._prefill) == {64}
+    assert set(eng._prefill) == {(64, 0)}  # (pad_to, n_front)
     eng.kv.release(s)
     s = eng.kv.acquire()
     before = eng.compile_s
@@ -134,7 +134,7 @@ def test_warmup_prefill_precompiles(models):
     spent = eng.warmup_prefill(lengths=(32, 64), ctx_limits=(64,))
     assert spent > 0
     assert eng.compile_s == pytest.approx(spent)
-    assert set(eng._prefill) == {32, 64}
+    assert set(eng._prefill) == {(32, 0), (64, 0)}
     assert set(eng._append) == {(32, 64), (64, 64)}
     s = eng.kv.acquire()
     before = eng.compile_s
@@ -147,7 +147,7 @@ def test_warmup_prefill_precompiles(models):
     # a second replica builds its own.
     eng2 = _engine(models, n_slots=2, max_ctx=128)
     assert eng2.warmup_prefill(lengths=(32, 64), ctx_limits=(64,)) > 0
-    assert set(eng2._prefill) == {32, 64}
+    assert set(eng2._prefill) == {(32, 0), (64, 0)}
 
 
 @pytest.mark.parametrize("arch", ["rwkv6-3b", "recurrentgemma-9b"])
@@ -174,14 +174,14 @@ def test_constructor_warmup_builds_every_reachable_program(models, arch):
     eng = _engine(models, arch, n_slots=2, max_ctx=64, warmup=True)
     assert set(eng._fused) == {(c, 64) for c in (1, 2, 4, 8, 16, 32)}
     if arch == "qwen3-0.6b":
-        assert set(eng._prefill) == {32, 64}
+        assert set(eng._prefill) == {(32, 0), (64, 0)}
         assert set(eng._append) == {(32, 64), (64, 64)}
     else:
         assert not eng._prefill and not eng._append
     assert eng.compile_s > 0
     assert set(eng.programs()) == (
         {("decode",) + k for k in eng._fused}
-        | {("prefill", k) for k in eng._prefill}
+        | {("prefill",) + k for k in eng._prefill}
         | {("append",) + k for k in eng._append})
 
 
