@@ -11,7 +11,9 @@ reference's dense family (olmo-1b, stablelm-12b, nemotron-4-15b, gemma3-12b)
 at full width, then its MoE models (deepseek-v2-lite-16b with MLA,
 llama4-scout-17b-a16e at the depth that fits), then its vision-frontend
 model (internvl2-26b) and its encoder-decoder (whisper-small) at full
-width and depth, and holds each hand-written
+width and depth, then trains full-width olmo-1b in bf16 through
+`repro_torch.train` (a training step launches no kernel of the port), and
+holds each hand-written
 CUDA kernel of those paths against its plain PyTorch version on the card.
 Every replica runs its decode chunks, turn-1 prefills and appends through
 its programs' CUDA graphs (the default), so the launch counts of the served
@@ -117,14 +119,14 @@ Phases, each raising on failure:
      transfer each, K1's launches a positive multiple of the global
      layers, K2's the global layers times the 8 turn-1 prefills, K3 and
      K4 at 0; (d) gemma3-12b, whose pattern differs: phase 11's graph
-     against eager check in fp32, at the depth that holds the eager pass's
-     three cache copies (printed). Prints its wall time;
+     against eager check in fp32, at 12 layers (two repetitions of its
+     pattern; printed). Prints its wall time;
  13. MLA and MoE, each model freed before the next: (a) K1 and K2 at
      llama4-scout's heads (40 / 8 x 128, G = 5) against their plain
      versions as in phase 12 (a), K2 at S = 256 and 512; deepseek-v2-lite-
-     16b in fp32 (TF32 off) at the depth that holds its weights beside
-     phase 11's cache copies (printed), (b) at cf = E/K (dropless, a
-     check-only cut, as `reduced_config` makes it): in every layer, on the
+     16b in fp32 (TF32 off) at 8 layers (printed), (b) at cf = E/K
+     (dropless, a check-only cut, as `reduced_config` makes it): in every
+     layer, on the
      same inputs, the absorbed MLA decode of 8 tokens within 1e-3 of
      max(1, max|out|) of the expanded form; a 150-token prefill and 8
      greedy decode steps against one expanded prefill of all 158 tokens —
@@ -164,12 +166,29 @@ Phases, each raising on failure:
      eager, byte-identical, with seeded patches; (e) bf16 at full width and
      depth served as 5b — transfers of 196,608 B x (256 + the first
      input), K1 = 48 x the graphed decode steps, K2 = 48 x 8 graphed
-     turn-1 prefills — then a 16-slot step. Prints its wall time.
+     turn-1 prefills — then a 16-slot step. Prints its wall time;
+ 15. training (`repro_torch.train`): a grad-requiring call to
+     `ops.prefill_attention` raises before it launches; (a) olmo-1b as
+     published (16 x 2048, 1,177,026,560 parameters counted as Python
+     ints) in bf16 from a seeded torch init, `SyntheticLM` at 8 x 2048,
+     grad_accum 2, remat "group": 4 AdamW steps with flash_vjp off (the
+     published config) and 4 with it on — each step's loss (finite, the
+     last below the first), the first step traced as the warm-up (device
+     busy, kernel launches a step), the median of the others' CUDA-event
+     times, tokens/s, peak memory and the bound 6 x N x tokens over 989
+     TFLOP/s; K1-K4's counters at 0 after every step; (c) the second
+     run's bf16 params and AdamW state saved in the reference's format
+     and restored bit-exactly, one more step from each with the same loss;
+     (b) fp32 with TF32 off at full width and 2 layers: flash_vjp on
+     against off (losses within 1e-6, gradients within 1e-5 of each
+     leaf's max |g|), grad_accum=2 against the full batch (1e-5), remat
+     "group", "layer" and "both" (losses within 1e-5). Prints its wall
+     time.
 
 Every log line starts with the seconds since the script began.
 
-Each model is freed before the next is loaded. The last four lines of
-standard output are the script's wall time, the card's name and power
+Each model is freed before the next is loaded. Phase 15's records are a
+log line of their own. The last four lines of standard output are the script's wall time, the card's name and power
 limit, one JSON object with a record per kernel (K1's and K2's with their
 phase-10 launches and, under "phase12", "phase13" and "phase14", each
 dense, MoE and frontend model's served launches and, at its heads, the
@@ -193,6 +212,11 @@ runs phases 1-2 and phase 13 alone and ends with the card line and phase
 runs phases 1-2 and phase 14 alone and ends with the card line and phase
 14's records (no ok line; internvl2-26b's without phase 12's kernel
 records).
+
+    python3 chip_smoke.py --phase15
+
+runs phases 1-2 and phase 15 alone and ends with the card line and phase
+15's records (no ok line).
 
     python3 chip_smoke.py --rotation-sweep 4,8,16,32
 
@@ -1119,6 +1143,10 @@ def phase_rg_serve(torch, cfg, device, card):
 # phase 11: the replica's CUDA graphs against the same bodies run eagerly
 # --------------------------------------------------------------------------- #
 GRAPH_SLOTS = 16
+# the depths of the fp32 graph checks 12 (d) and 13 (d): whole-depth checks
+# of these two patterns (30 of gemma3's 48 layers, all 27 of deepseek's)
+# ran before phase 15 was added, whose time they now pay for
+GRAPH_CHECK_LAYERS = {"gemma3-12b": 12, "deepseek-v2-lite-16b": 8}
 
 
 def cache_copy(eng):
@@ -1747,16 +1775,23 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8, front=None):
     torch.cuda.empty_cache()
 
 
+def cut_depth(cfg, n_layers: int, tag: str):
+    """cfg at full width cut to `n_layers` layers (whole pattern
+    repetitions), printed."""
+    log(f"  {tag}: {cfg.name} {cfg.dtype} cut from {cfg.n_layers} to "
+        f"{n_layers} layers (widths unchanged)")
+    return cfg.scaled(n_layers=n_layers)
+
+
 def dense_graphs(torch, cfg, device, card):
     """(d) phase 11's check in fp32 (TF32 off) on fresh weights: the CUDA
     graphs against the same bodies run eagerly, tokens equal and caches
-    byte-identical after every chunk. Its eager pass keeps three copies of
-    the 16-slot, 1024-row cache beside the live one (4 x 7.5 GB for
-    gemma3-12b in fp32), so the depth is cut to fit, and printed."""
+    byte-identical after every chunk, at GRAPH_CHECK_LAYERS[arch] layers
+    (printed): its pattern's two repetitions, which pay for phase 15's
+    time."""
     from repro_torch.models import build_model
-    cfg = cfg.scaled(dtype="float32")
-    cache_layer = 2 * cfg.n_kv_heads * cfg.head_dim * 4 * 1024 * GRAPH_SLOTS
-    cfg = fit_depth(torch, cfg, per_layer_extra=4 * cache_layer)
+    cfg = cut_depth(cfg.scaled(dtype="float32"),
+                    GRAPH_CHECK_LAYERS[cfg.name], "12 (d)")
     params = build_model(cfg).init(0, device)
     phase_graphs(torch, cfg, params, card, "12 (d)")
     del params
@@ -2024,18 +2059,16 @@ def mla_absorbed_vs_expanded(torch, cfg, params, device):
 
 
 def deepseek_fp32(torch, cfg, device, card):
-    """(b) and (d) on one set of fp32 weights (TF32 off), the depth cut to
-    what holds them beside phase 11's three 16-slot, 1024-row cache copies
-    (printed): (b) the absorbed decode against the expanded prefill, (d)
-    the CUDA graphs against the same bodies run eagerly at the published
-    cf (capacity drops inside the graphs), byte-identical."""
+    """(b) and (d) on one set of fp32 weights (TF32 off) at
+    GRAPH_CHECK_LAYERS[arch] layers (printed; the cut pays for phase 15's
+    time): (b) the absorbed decode against the expanded prefill, (d) the
+    CUDA graphs against the same bodies run eagerly at the published cf
+    (capacity drops inside the graphs), byte-identical."""
     from repro_torch.models import build_model
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    cfg = cfg.scaled(dtype="float32")
-    cache_layer = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 4 * 1024 \
-        * GRAPH_SLOTS
-    cfg = fit_depth(torch, cfg, per_layer_extra=4 * cache_layer)
+    cfg = cut_depth(cfg.scaled(dtype="float32"),
+                    GRAPH_CHECK_LAYERS[cfg.name], "13 (b, d)")
     params = build_model(cfg).init(0, device)
     mla_absorbed_vs_expanded(torch, cfg, params, device)
     phase_graphs(torch, cfg, params, card, "13 (d)")
@@ -2478,6 +2511,281 @@ def front_records(recs, launches, costs, vlm_recs=None):
     return out
 
 
+# --------------------------------------------------------------------------- #
+# phase 15: training — full-width olmo-1b steps in bf16 (`repro_torch.train`)
+# --------------------------------------------------------------------------- #
+TRAIN_ARCH = "olmo-1b"
+# the reference skeleton's parameters, as Python ints (F10)
+TRAIN_PARAMS = 1_177_026_560
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_ACCUM, TRAIN_STEPS = 2048, 8, 2, 4
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+# (b), fp32 with TF32 off at full width and 2 layers: the reference's own
+# invariants at its tolerances — flash_vjp on against off (losses 1e-6, as
+# tests/test_perf_variants.py; gradients 1e-5 of each leaf's max |g|),
+# grad_accum=2 against the full batch (loss relative and gradients 1e-5),
+# the remat granularities (losses 1e-5, as tests/test_perf_variants.py)
+INV_LAYERS, INV_SEQ, INV_BATCH = 2, 2048, 2
+FLASH_LOSS_TOL, FLASH_GRAD_RTOL = 1e-6, 1e-5
+ACCUM_RTOL, REMAT_TOL = 1e-5, 1e-5
+
+
+def train_bound_s(n_params: int, tokens: int) -> float:
+    """A step's least time: 6 x N x tokens over the bf16 peak (the model's
+    forward and backward matmuls, before remat's extra forward)."""
+    return 6 * n_params * tokens / PEAK_FLOPS["bfloat16"]
+
+
+def refuse_grad_launch(torch, device):
+    """A grad-requiring call to a kernel raises before it launches."""
+    from repro_torch.kernels import ops
+    q = torch.zeros(1, 64, 16, 128, device=device, dtype=torch.bfloat16,
+                    requires_grad=True)
+    before = ops.launch_counts()
+    try:
+        ops.prefill_attention(q, q.detach(), q.detach(), impl="cuda")
+    except RuntimeError as e:
+        log(f"  guard: a grad-requiring ops.prefill_attention raised: {e}")
+    else:
+        raise AssertionError("ops.prefill_attention launched with an input "
+                             "that requires grad")
+    if ops.launch_counts() != before:
+        raise AssertionError("the refused call moved a launch counter")
+
+
+def traced_step(torch, fn):
+    """Run `fn()` once under `torch.profiler` (CUDA activity only): (its
+    result, device-busy seconds, kernel launches, seconds the trace's
+    processing took)."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.launch.profile import kernel_rows
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = kernel_rows(prof)
+    return (out, sum(r[1] for r in rows) / 1e6, sum(r[2] for r in rows),
+            time.perf_counter() - t0)
+
+
+def train_run(torch, cfg, device, card, flash: bool):
+    """(a) TRAIN_STEPS AdamW steps of full-width cfg in bf16 from a seeded
+    torch init on `SyntheticLM` at TRAIN_SEQ x TRAIN_BATCH, grad_accum
+    TRAIN_ACCUM, remat at the config's "group": each step's loss (finite,
+    falling from the first to the last), the first step traced (device
+    busy, kernel launches) as the warm-up, the later ones timed by CUDA
+    events (median), tokens/s, peak memory, the bound; K1-K4's counters
+    still at 0 after every step. Returns (model, params, state, data, the
+    step function) for (c)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model
+    from repro_torch.train import (AdamWConfig, DataConfig, SyntheticLM,
+                                   adamw_init, make_train_step)
+    cfg = cfg.scaled(flash_vjp=flash)
+    tag = f"flash_vjp {'on' if flash else 'off'}"
+    model = build_model(cfg)
+    params = model.init(0, device)
+    opt = adamw_init(params)
+    step = make_train_step(model, AdamWConfig(**TRAIN_OPT),
+                           grad_accum=TRAIN_ACCUM)
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=TRAIN_SEQ,
+                                  global_batch=TRAIN_BATCH))
+    tokens = TRAIN_SEQ * TRAIN_BATCH
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launch_counts()
+    losses, times = [], []
+    for i in range(TRAIN_STEPS):
+        batch = data.batch(i)
+        if i == 0:
+            t0 = time.perf_counter()
+            (params, opt, m), busy, n_k, t_proc = traced_step(
+                torch, lambda: step(params, opt, batch))
+            wall = time.perf_counter() - t0 - t_proc
+            log(f"  [{card}] (a) {tag} step 1 (warm-up, traced): wall "
+                f"{wall:.3f} s, device busy {busy:.3f} s, {n_k} kernel "
+                f"launches a step (the trace's processing {t_proc:.1f} s)")
+        else:
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            params, opt, m = step(params, opt, batch)
+            e1.record()
+            torch.cuda.synchronize()
+            times.append(e0.elapsed_time(e1) / 1e3)
+        losses.append(float(m["loss"]))
+        log(f"  [{card}] (a) {tag} step {i + 1}: loss {losses[-1]:.6f}, "
+            f"grad_norm {float(m['grad_norm']):.4f}, lr "
+            f"{float(m['lr']):.3e}"
+            + (f", {times[-1] * 1e3:.1f} ms" if i else ""))
+        if any(ops.launch_counts().values()):
+            raise AssertionError(f"a training step launched a port kernel: "
+                                 f"{ops.launch_counts()}")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"(a) {tag}: losses {losses} are not finite "
+                             "and falling")
+    med = float(np.median(times))
+    bound = train_bound_s(TRAIN_PARAMS, tokens)
+    log(f"  [{card}] (a) {tag}: step {med * 1e3:.1f} ms (median of steps "
+        f"2-{TRAIN_STEPS}, CUDA events), {tokens / med:.1f} tokens/s, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; bound "
+        f"6 x {TRAIN_PARAMS:,} x {tokens:,} = "
+        f"{6 * TRAIN_PARAMS * tokens:.3e} FLOP over 989 TFLOP/s = "
+        f"{bound * 1e3:.1f} ms ({med / bound:.2f}x); K1-K4 launches "
+        f"{ops.launch_counts()}")
+    return model, params, opt, data, step, {
+        "flash_vjp": flash, "losses": losses, "step_ms": med * 1e3,
+        "tokens_per_s": tokens / med, "bound_ms": bound * 1e3,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "launches_per_step": n_k, "device_busy_s_step1": busy}
+
+
+def train_checkpoint(torch, model, params, opt, data, step, card):
+    """(c) a bf16 checkpoint of (a)'s params and AdamW state, saved and
+    restored (into an uninitialised module and the state's meta skeleton)
+    bit-exactly, then one more step from each with the same loss."""
+    from repro_torch.train import (adamw_state_skeleton, restore_checkpoint,
+                                   save_checkpoint)
+    d = ROOT / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(d, ignore_errors=True)
+    d.mkdir(parents=True)
+    log(f"  (c) checkpoint under {d.relative_to(ROOT)}: "
+        f"{shutil.disk_usage(d).free / 2**30:.1f} GiB free on its disk")
+    t0 = time.perf_counter()
+    path = save_checkpoint(d, TRAIN_STEPS, params, opt)
+    n_bytes = sum(f.stat().st_size for f in Path(path).iterdir())
+    t1 = time.perf_counter()
+    sk = model.module(params.embed.w.device)
+    p2, o2, _ = restore_checkpoint(d, TRAIN_STEPS, sk,
+                                   adamw_state_skeleton(sk))
+    t2 = time.perf_counter()
+
+    def bits(t):
+        return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+    same = all(torch.equal(bits(a), bits(b)) for a, b in
+               zip(params.parameters(), p2.parameters()))
+    for sec in ("mu", "nu"):
+        same &= all(torch.equal(opt[sec][n], o2[sec][n]) for n in opt[sec])
+    same &= int(opt["step"]) == int(o2["step"])
+    log(f"  [{card}] (c) saved {n_bytes / 1e9:.3f} GB in {t1 - t0:.1f} s, "
+        f"restored in {t2 - t1:.1f} s: bit-exact {same}")
+    if not same:
+        raise AssertionError("(c) the restored checkpoint differs")
+    batch = data.batch(TRAIN_STEPS)
+    _, _, m1 = step(params, opt, batch)
+    _, _, m2 = step(p2, o2, batch)
+    l1, l2 = float(m1["loss"]), float(m2["loss"])
+    log(f"  [{card}] (c) step {TRAIN_STEPS + 1}: loss {l1:.6f} without the "
+        f"round trip, {l2:.6f} from the restored checkpoint")
+    if l1 != l2:
+        raise AssertionError("(c) the step from the restored checkpoint "
+                             "has another loss")
+    shutil.rmtree(d, ignore_errors=True)
+
+
+def leaf_gap(g1, g2):
+    """The largest gap of two gradient dicts, each leaf's relative to its
+    max |g1|."""
+    return max(float((g1[n].float() - g2[n].float()).abs().max())
+               / max(float(g1[n].float().abs().max()), 1e-30) for n in g1)
+
+
+def train_invariants(torch, cfg, device, card):
+    """(b) fp32 with TF32 off at full width and INV_LAYERS layers, one
+    seeded batch of INV_BATCH x INV_SEQ: flash_vjp on against off, then
+    grad_accum=2 against the full batch, then the remat granularities,
+    each at its tolerance (module constants)."""
+    import dataclasses
+    from repro_torch.models import build_model
+    from repro_torch.train import DataConfig, SyntheticLM
+    from repro_torch.train.train_step import make_grad_fn
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = cfg.scaled(dtype="float32", n_layers=INV_LAYERS)
+    log(f"  (b) fp32 at full width, {INV_LAYERS} layers, batch {INV_BATCH} "
+        f"x {INV_SEQ}")
+    params = build_model(cfg).init(0, device)
+    batch = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                   seq_len=INV_SEQ,
+                                   global_batch=INV_BATCH)).batch(0)
+
+    def grads(**over):
+        c = dataclasses.replace(cfg, **{k: v for k, v in over.items()
+                                        if k != "grad_accum"})
+        return make_grad_fn(build_model(c),
+                            grad_accum=over.get("grad_accum", 1))(params,
+                                                                  batch)
+
+    l0, g0 = grads()
+    l1, g1 = grads(flash_vjp=True)
+    gap_l, gap_g = abs(float(l1) - float(l0)), leaf_gap(g0, g1)
+    log(f"  [{card}] (b) flash_vjp on vs off: loss {float(l0):.7f} vs "
+        f"{float(l1):.7f} (|diff| {gap_l:.3e}, tol {FLASH_LOSS_TOL}), "
+        f"gradients {gap_g:.3e} of each leaf's max |g| (tol "
+        f"{FLASH_GRAD_RTOL})")
+    if gap_l > FLASH_LOSS_TOL or gap_g > FLASH_GRAD_RTOL:
+        raise AssertionError("(b) flash_vjp changes the loss or gradients")
+    la, ga = grads(grad_accum=2)
+    gap_l = abs(float(la) - float(l0)) / abs(float(l0))
+    gap_g = leaf_gap(g0, ga)
+    log(f"  [{card}] (b) grad_accum=2 vs the full batch: loss {float(la):.7f}"
+        f" ({gap_l:.3e} relative), gradients {gap_g:.3e} of each leaf's "
+        f"max |g| (tol {ACCUM_RTOL})")
+    if gap_l > ACCUM_RTOL or gap_g > ACCUM_RTOL:
+        raise AssertionError("(b) grad_accum=2 differs from the full batch")
+    del g1, ga
+    losses = {g: float(grads(remat_granularity=g)[0])
+              for g in ("group", "layer", "both")}
+    spread = max(losses.values()) - min(losses.values())
+    log(f"  [{card}] (b) remat granularities: losses {losses}, spread "
+        f"{spread:.3e} (tol {REMAT_TOL})")
+    if spread > REMAT_TOL:
+        raise AssertionError("(b) the remat granularities disagree")
+    del params, g0
+    torch.cuda.empty_cache()
+
+
+def phase_train(torch, device, card):
+    """Phase 15: training — (a) full-width olmo-1b in bf16, TRAIN_STEPS
+    AdamW steps with flash_vjp off (the published config) and on, (c) the
+    second run's checkpoint round trip, (b) the fp32 invariants. Returns
+    each (a) run's record."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = get_config(TRAIN_ARCH)
+    n = sum(p.numel() for p in build_model(cfg).module("meta").parameters())
+    log(f"phase 15: training {cfg.name} at full width in {cfg.dtype}: "
+        f"{cfg.n_layers} x {cfg.d_model}, {cfg.n_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab_size}, {n:,} parameters, remat "
+        f"{cfg.remat_granularity}; SyntheticLM {TRAIN_BATCH} x {TRAIN_SEQ},"
+        f" grad_accum {TRAIN_ACCUM}, AdamW {TRAIN_OPT}")
+    if n != TRAIN_PARAMS:
+        raise AssertionError(f"{n} parameters, not {TRAIN_PARAMS}")
+    refuse_grad_launch(torch, device)
+    recs = []
+    for flash in (False, True):
+        model, params, opt, data, step, rec = train_run(torch, cfg, device,
+                                                        card, flash)
+        recs.append(rec)
+        if flash:
+            train_checkpoint(torch, model, params, opt, data, step, card)
+        del model, params, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+    train_invariants(torch, cfg, device, card)
+    gc.collect()
+    from repro_torch.kernels import ops
+    if any(ops.launch_counts().values()):
+        raise AssertionError(f"phase 15 launched a port kernel: "
+                             f"{ops.launch_counts()}")
+    log(f"phase 15 wall {time.perf_counter() - t0:.1f} s")
+    return recs
+
+
 def rotation_sweep(torch, cfg, device, card, values):
     """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
     the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
@@ -2509,6 +2817,9 @@ def main(argv=None) -> int:
                     help="run phases 1-2 and phase 14 (the vision frontend "
                     "and the encoder-decoder) alone and print its records, "
                     "without the ok line")
+    ap.add_argument("--phase15", action="store_true",
+                    help="run phases 1-2 and phase 15 (training) alone and "
+                    "print its records, without the ok line")
     ap.add_argument("--rotation-sweep", metavar="N,N,...",
                     help="after phases 1-2, serve phase 5b's trace once for "
                     "each rotation_min_chunk given, print each run's "
@@ -2574,6 +2885,12 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"phase14": front}))
         return 0
+    if args.phase15:
+        train = phase_train(torch, device, card)
+        log(f"chip_smoke --phase15 wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"phase15": train}))
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -2597,6 +2914,8 @@ def main(argv=None) -> int:
     moe = moe_records(*phase_moe(torch, device, card))
     front = front_records(*phase_front(torch, device, card),
                           vlm_recs=dense_recs["nemotron-4-15b"])
+    train = phase_train(torch, device, card)
+    log("phase 15 records: " + json.dumps(train))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",

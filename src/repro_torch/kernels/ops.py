@@ -5,6 +5,12 @@ the plain PyTorch version for a CPU tensor — only because the tensor lies on
 the CPU. `impl="torch"` always takes the plain version. There is no fallback
 that hides a failed launch: a CUDA tensor the kernel does not take raises.
 
+The kernels have no backward: a launch's output carries no `grad_fn`, so
+a launch inside a training step would silently cut the gradient of
+everything upstream. A launch with grad mode on and an input that requires
+grad raises (`_refuse_grad`); training runs `attention_impl="torch"`, the
+reference's train path, and never reaches a kernel.
+
 Each wrapper counts its launches (`launch_counts`). A replayed CUDA graph
 calls no wrapper, so the replica's programs (`engine.programs`) add what
 their capture counted on every replay (`add_launches`).
@@ -37,10 +43,23 @@ def _use_kernel(x: torch.Tensor, impl: str) -> bool:
     return True
 
 
+def _refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if a launch of `kernel` would sit inside autograd: grad mode on
+    and an input that requires grad. There is no quiet fallback to the
+    plain version."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward, and an input "
+            "requires grad — its output would cut the gradient; train with "
+            'attention_impl="torch"')
+
+
 def prefill_attention(q, k, v, *, window: int = 0, impl: str = "cuda"):
     """q: (B, S, H, D); k, v: (B, S, Hkv, D) — causal (optionally
     sliding-window) attention."""
     if _use_kernel(q, impl):
+        _refuse_grad("prefill_attention", q, k, v)
         return flash_prefill_attention(q, k, v, window=window)
     return prefill_attention_plain(q, k, v, window=window)
 
@@ -62,6 +81,7 @@ def decode_attention(q, k, v, lengths=None, *, impl: str = "cuda",
         lengths = torch.full((q.shape[0],), k.shape[1], dtype=torch.int32,
                              device=q.device)
     if _use_kernel(q, impl):
+        _refuse_grad("decode_attention", q, k, v, k_new, v_new)
         return flash_decode_attention(q, k, v, lengths, k_new, v_new)
     return decode_attention_plain(q, k, v, lengths, k_new, v_new)
 
@@ -70,6 +90,7 @@ def wkv6(r, k, v, logw, u, state, *, impl: str = "cuda"):
     """WKV6: r, k, v, logw (B, S, H, hs); u (H, hs); state (B, H, hs, hs)
     float32. Returns (y, final_state), both float32."""
     if _use_kernel(r, impl):
+        _refuse_grad("wkv6", r, k, v, logw, u, state)
         return wkv6_cuda(r, k, v, logw, u, state)
     return wkv6_plain(r, k, v, logw, u, state)
 
@@ -78,6 +99,7 @@ def rglru_scan(log_a, b, h0, *, impl: str = "cuda"):
     """Gated linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t: log_a, b
     (B, S, W); h0 (B, W) float32. Returns (h_all, h_T), both float32."""
     if _use_kernel(log_a, impl):
+        _refuse_grad("rglru", log_a, b, h0)
         return rglru_cuda(log_a, b, h0)
     return rglru_plain(log_a, b, h0)
 

@@ -1,6 +1,8 @@
 """GQA attention, global and sliding-window: blocked online-softmax prefill
 and append-prefill, the chunked sliding-window prefill, the two-branch decode
-against a slot cache, and the routes into the port's CUDA kernels
+against a slot cache, `flash_attention` (an autograd Function whose
+backward recomputes the probabilities: the reference's custom-VJP flash
+attention, for training), and the routes into the port's CUDA kernels
 (`attention_impl="cuda"`); and MLA (DeepSeek-style latent attention), whose
 cache is the compressed latent and one shared rope key, with the expanded
 prefill and the absorbed-matrix decode.
@@ -245,6 +247,128 @@ def local_attention(q, k, v, q_start: int, window: int, *,
 
 
 # --------------------------------------------------------------------------- #
+# Flash attention with a recomputing backward (training memory)
+#
+# Autograd through `online_attention` saves every key chunk's online-softmax
+# carriers (m, l, acc) and probabilities. `flash_attention` saves only
+# (q, k, v, out, lse) and recomputes the probabilities chunk by chunk in its
+# backward — the flash-attention backward in torch ops, the reference's
+# custom-VJP `flash_attention` (reference models/attention.py).
+# --------------------------------------------------------------------------- #
+FLASH_KV_CHUNK = 512
+
+
+def _flash_chunks(k, v, kv_chunk):
+    """k, v padded with zero rows to whole chunks of `kv_chunk` keys."""
+    Skv = k.shape[1]
+    kv_chunk = min(kv_chunk, Skv)
+    pk = (-Skv) % kv_chunk
+    if pk:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
+    return k, v, kv_chunk
+
+
+def _flash_mask(qpos, kpos, Skv, kv_start, causal, window):
+    """(Sq, C) visibility of one key chunk: a real key (not the chunk's
+    padding), at or before the query when causal, inside the window."""
+    ok = (kpos[None, :] < Skv + kv_start).expand(qpos.shape[0], -1)
+    if causal:
+        ok = ok & (kpos[None, :] <= qpos[:, None])
+    if window:
+        ok = ok & (kpos[None, :] > qpos[:, None] - window)
+    return ok
+
+
+def _flash_fwd_impl(q, k, v, q_start, kv_start, causal, window, kv_chunk):
+    """(out (B, Sq, H, D) in q's dtype, lse (B, H, Sq) fp32): one online
+    softmax over the key chunks, q whole."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    k, v, kv_chunk = _flash_chunks(k, v, kv_chunk)
+    qpos = q_start + torch.arange(Sq, device=dev)
+    qf = q.float()
+    m = torch.full((B, H, Sq), NEG_INF, dtype=torch.float32, device=dev)
+    l = torch.zeros((B, H, Sq), dtype=torch.float32, device=dev)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=dev)
+    for j0 in range(0, k.shape[1], kv_chunk):
+        k_blk, v_blk = k[:, j0:j0 + kv_chunk], v[:, j0:j0 + kv_chunk]
+        kpos = kv_start + j0 + torch.arange(kv_chunk, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk.float()) * scale
+        ok = _flash_mask(qpos, kpos, Skv, kv_start, causal, window)
+        s = torch.where(ok[None, None], s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.einsum("bhqk,bkhd->bhqd", p,
+                                                   v_blk.float())
+        m = m_new
+    out = (acc / torch.clamp(l[..., None], min=1e-20)).transpose(1, 2)
+    lse = m + torch.log(torch.clamp(l, min=1e-20))
+    return out.to(q.dtype), lse
+
+
+def _flash_bwd(q, k, v, out, lse, dout, q_start, kv_start, causal, window,
+               kv_chunk):
+    """(dq, dk, dv): the probabilities recomputed from lse chunk by chunk,
+    Delta = rowsum(dout * out)."""
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    dev = q.device
+    scale = 1.0 / math.sqrt(D)
+    kp, vp, kv_chunk = _flash_chunks(k, v, kv_chunk)
+    qpos = q_start + torch.arange(Sq, device=dev)
+    qf, do = q.float(), dout.float()
+    delta = torch.einsum("bqhd,bqhd->bhq", do, out.float())
+    dq = torch.zeros((B, Sq, H, D), dtype=torch.float32, device=dev)
+    dks, dvs = [], []
+    for j0 in range(0, kp.shape[1], kv_chunk):
+        k_blk, v_blk = kp[:, j0:j0 + kv_chunk].float(), \
+            vp[:, j0:j0 + kv_chunk].float()
+        kpos = kv_start + j0 + torch.arange(kv_chunk, device=dev)
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk) * scale
+        ok = _flash_mask(qpos, kpos, Skv, kv_start, causal, window)
+        p = torch.where(ok[None, None], torch.exp(s - lse[..., None]),
+                        torch.zeros_like(s))
+        dvs.append(torch.einsum("bhqk,bqhd->bkhd", p, do))
+        dp = torch.einsum("bqhd,bkhd->bhqk", do, v_blk)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bhqk,bkhd->bqhd", ds, k_blk)
+        dks.append(torch.einsum("bhqk,bqhd->bkhd", ds, qf))
+    dk = torch.cat(dks, dim=1)[:, :Skv]
+    dv = torch.cat(dvs, dim=1)[:, :Skv]
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, q_start, kv_start, causal, window, kv_chunk):
+        out, lse = _flash_fwd_impl(q, k, v, q_start, kv_start, causal,
+                                   window, kv_chunk)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (q_start, kv_start, causal, window, kv_chunk)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(q, k, v, out, lse, dout, *ctx.args)
+        return dq, dk, dv, None, None, None, None, None
+
+
+def flash_attention(q, k, v, q_start: int, kv_start: int, causal: bool,
+                    window: int, kv_chunk: int = FLASH_KV_CHUNK):
+    """q: (B, Sq, H, D); k, v: (B, Skv, H, D) (heads pre-expanded). Causal
+    / sliding-window attention whose backward keeps O(1)-in-S residuals per
+    key chunk: it saves (q, k, v, out, lse) and recomputes the rest."""
+    return _FlashAttention.apply(q, k, v, q_start, kv_start, causal, window,
+                                 kv_chunk)
+
+
+# --------------------------------------------------------------------------- #
 # Decode attention (two-branch flash-decode combine)
 # --------------------------------------------------------------------------- #
 def _partial_softmax(s, mask):
@@ -343,10 +467,12 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
 
     `attention_impl="cuda"` routes FRESH global-attention prefill (no
     prefix, no kv_lens masking, window 0) through the flash-prefill kernel
-    K2, at any S: the kernel masks its ragged last tile. A fresh local
-    prefill takes `local_attention`; append-prefill prefix reads and
-    kv_lens-masked cases take the online-softmax path with the layer's
-    window."""
+    K2, at any S: the kernel masks its ragged last tile. The other fresh
+    prefills take the reference's branches in its order: `flash_attention`
+    under `cfg.flash_vjp` (windows included), then `local_attention` for a
+    local layer, then the online-softmax path (one chunk under
+    `cfg.attn_block_full`). Append-prefill prefix reads and kv_lens-masked
+    cases take the online-softmax path with the layer's window."""
     _check_impl(attention_impl)
     B, S, _ = x.shape
     q, k, v = _proj_qkv(attn, cfg, x)
@@ -391,12 +517,16 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
     else:
         kf = _repeat_kv(k, cfg.n_heads)
         vf = _repeat_kv(v, cfg.n_heads)
-        if window:
+        if cfg.flash_vjp and kv_lens is None and not cfg.attn_block_full:
+            out = flash_attention(q, kf, vf, start_pos, start_pos, True,
+                                  window, FLASH_KV_CHUNK)
+        elif window and not cfg.attn_block_full:
             out = local_attention(q, kf, vf, start_pos, window)
         else:
+            ch = (1 << 30) if cfg.attn_block_full else 256
             out = online_attention(q, kf, vf, pos, pos, causal=True,
-                                   kv_lens=kv_lens, q_chunk=256,
-                                   kv_chunk=256)
+                                   window=window, kv_lens=kv_lens,
+                                   q_chunk=ch, kv_chunk=ch)
     out = out.reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ attn.wo, new_cache
 

@@ -21,7 +21,7 @@ MoE's router stays float32 in a bf16 model).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -65,6 +65,60 @@ def _top_leaves(lm) -> Dict[str, Dict[str, torch.Tensor]]:
     enc_norm) under the reference's names ({} for a tied unembedding or a
     parameter-free norm)."""
     return {sub: _leaves_of(getattr(lm, sub)) for sub in _top_names(lm.cfg)}
+
+
+def _names_of(mod, prefix: str) -> Dict[str, Any]:
+    """`_leaves_of`'s tree with each leaf's full parameter name in the
+    port's module (prefix + dotted path) in place of the tensor."""
+    tree: Dict[str, Any] = {n: prefix + n for n, _ in
+                            mod.named_parameters(recurse=False)}
+    tree.update({sub: _names_of(child, f"{prefix}{sub}.")
+                 for sub, child in mod.named_children()})
+    return tree
+
+
+def reference_leaves(lm) -> List[Tuple[str, List[str], bool]]:
+    """The reference's params tree as its flat leaves, in its flatten order
+    (dict keys sorted at every level, an empty dict giving no leaf): for
+    each leaf (its `jax.tree_util.keystr` string, such as
+    "['groups']['p0']['attn']['wq']", the port's parameter names that make
+    it, stacked). A stacked leaf ("groups" and an encoder-decoder's
+    "encoder" and "decoder") is its names' tensors stacked on a new leading
+    axis in layer order; an unstacked one has one name."""
+    prefix = "blocks" if not lm.cfg.is_encoder_decoder else None
+    tree: Dict[str, Any] = {sub: _names_of(getattr(lm, sub), f"{sub}.")
+                            for sub in _top_names(lm.cfg)}
+    stacked: Dict[Tuple[str, Optional[str]], list] = {}
+    for i, ((sec, key, _), block) in enumerate(_stacks(lm)):
+        at = (f"{prefix}.{i}." if prefix else
+              f"{sec}.{len(stacked.get((sec, key), []))}.")
+        stacked.setdefault((sec, key), []).append(_names_of(block, at))
+
+    def merge(per):
+        return {n: merge([b[n] for b in per]) if isinstance(v, dict)
+                else [b[n] for b in per] for n, v in per[0].items()}
+
+    for (sec, key), per in stacked.items():
+        node = merge(per) if sec != "rem" else per[0]
+        if key is None:
+            tree[sec] = node
+        else:
+            tree.setdefault(sec, {})[key] = node
+    out: List[Tuple[str, List[str], bool]] = []
+
+    def walk(node, path: str, stack: bool):
+        for n in sorted(node):
+            at = f"{path}[{n!r}]"
+            if isinstance(node[n], dict):
+                walk(node[n], at, stack)
+            else:
+                names = node[n] if isinstance(node[n], list) else [node[n]]
+                out.append((at, names, stack))
+
+    for top in sorted(tree):
+        stack = top in ("groups", "encoder", "decoder")
+        walk({top: tree[top]}, "", stack)
+    return out
 
 
 def _stacks(lm):

@@ -21,6 +21,10 @@ prefill reaches K2 and a decode step K1. The encoder's attention and
 every cross-attention are the non-causal `online_attention`, torch ops
 under both impls (K2 is causal only and K1 needs a new token).
 
+The training forward `encdec_hidden` runs the encoder once and each
+decoder layer (rematerialised, with its cross K/V recomputed inside it,
+under `remat`) without a cache.
+
 The sinusoidal table (`max_seq` rows) is one buffer built once on the
 model's device and indexed by a device tensor, so a decode step captures
 in a CUDA graph. Two reference faults are designed out here: a padded
@@ -30,10 +34,12 @@ rows, which the engine folds while the "cross" rows stay as they are
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .attention import (Attention, _proj_qkv, _repeat_kv, cross_attention,
                         encode_cross_kv, gqa_decode, gqa_prefill,
@@ -182,6 +188,31 @@ def encdec_prefill(m: EncDec, cfg: ModelConfig, tokens, *,
     if caches is None:
         out["cross"] = _stack(cross)
     return logits, out
+
+
+def encdec_hidden(m: EncDec, cfg: ModelConfig, tokens, *,
+                  frontend_embeds, remat: bool = False):
+    """Training forward: the decoder's post-final-norm hidden states (B, S,
+    D) over the encoder's output for `frontend_embeds`. No cache; the
+    encoder is not rematerialised; with `remat` each decoder layer runs
+    under `torch.utils.checkpoint`, its cross K/V recomputed inside it
+    (reference `encdec_hidden`)."""
+    B, S = tokens.shape
+    pos = torch.arange(S, device=m.device)
+    h = (embed(m.embed.w, cfg, tokens).to(cfg.torch_dtype)
+         + _positions(m, pos)[None])
+    enc = run_encoder(m, cfg, frontend_embeds)
+
+    def layer(blk, x, enc_out):
+        x = x + gqa_prefill(blk.attn, cfg, ATTN_GLOBAL, blk.ln1(x), 0)[0]
+        x = x + cross_attention(blk.cross, cfg, blk.lnx(x),
+                                encode_cross_kv(blk.cross, cfg, enc_out))
+        return x + apply_mlp(blk.mlp, cfg, blk.ln2(x))
+
+    for blk in m.decoder:
+        h = (checkpoint(partial(layer, blk), h, enc, use_reentrant=False)
+             if remat else layer(blk, h, enc))
+    return m.final_norm(h)
 
 
 def encdec_decode(m: EncDec, cfg: ModelConfig, token, caches, position,

@@ -1,6 +1,7 @@
-"""Model facade: one object per ModelConfig exposing init, the slot cache
-and the two serving entry points — prefill and single-token decode — for
-the decoder-only families (`transformer.LM`) and the encoder-decoder
+"""Model facade: one object per ModelConfig exposing init, the slot cache,
+the two serving entry points — prefill and single-token decode, under
+no_grad — and the training forward (`hidden`, `logits`, with autograd)
+for the decoder-only families (`transformer.LM`) and the encoder-decoder
 (`encdec.EncDec`) alike."""
 from __future__ import annotations
 
@@ -93,6 +94,27 @@ class Model:
                           layer_cache_shapes(cfg, kind, batch, ctx).items()}
                 for j, kind in enumerate(rem)}
         return tree
+
+    def hidden(self, params, tokens, *, frontend_embeds=None,
+               remat: bool = False):
+        """Training forward -> post-norm hidden states (B, S, D), with
+        autograd (not under no_grad): no cache, the reference's train path
+        (`attention_impl="torch"`: no kernel launch), rematerialised at
+        `cfg.remat_granularity` when `remat`. A vision model's frontend rows
+        are dropped; an encoder-decoder's `frontend_embeds` are its
+        frames."""
+        if self.cfg.is_encoder_decoder:
+            return encdec.encdec_hidden(params, self.cfg, tokens,
+                                        frontend_embeds=frontend_embeds,
+                                        remat=remat)
+        return transformer.lm_hidden(params, self.cfg, tokens, mode="train",
+                                     frontend_embeds=frontend_embeds,
+                                     remat=remat)[0]
+
+    def logits(self, params, hidden):
+        """The unembedding of hidden states (..., D) -> (..., padded
+        vocab), in the model's dtype."""
+        return transformer.lm_logits(params, hidden)
 
     @torch.no_grad()
     def prefill(self, params, tokens, *, caches=None, start_pos: int = 0,

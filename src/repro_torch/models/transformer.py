@@ -15,13 +15,21 @@ ctx is at most its window); "ckv" (…, batch, ctx, kv_lora_rank) and "krope"
 (…, batch, ctx, qk_rope_dim) for MLA; "s" (…, batch, nh_pad, hs, hs) and
 "shift", "cshift" (…, batch, 1, d_model) for RWKV6; "h" (…, batch,
 lru_width) and "conv" (…, batch, conv1d_width - 1, lru_width) for RG-LRU.
+
+The training forward (`lm_hidden(mode="train")`) builds no cache and runs
+the reference's train path (`attention_impl="torch"`, no kernel). Remat
+wraps the same layering in `torch.utils.checkpoint`: a "group" is one
+repetition of the pattern (that many consecutive blocks), and the "rem"
+blocks are never rematerialised.
 """
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .blocks import Block, block_decode, block_prefill
 from .config import (ATTN_GLOBAL, ATTN_LOCAL, ATTN_MLA, RGLRU, RWKV6,
@@ -156,23 +164,68 @@ def lm_logits(lm: LM, h):
     return unembed(lm.embed.w, h, getattr(lm.unembed, "w", None))
 
 
-def lm_hidden(lm: LM, cfg: ModelConfig, tokens, *, caches=None,
-              start_pos: int = 0, kv_lens=None, prefix_start=None,
-              frontend_embeds=None, attention_impl: str = "torch"):
-    """Run the stack over (B, S) tokens. Returns (post-final-norm hidden
-    (B, S, D), the new tokens' caches as a tree).
+def _remat(fn, *args):
+    return checkpoint(fn, *args, use_reentrant=False)
+
+
+def _train_stack(lm: LM, cfg: ModelConfig, h, start_pos, remat: bool):
+    """The training forward's blocks: no cache is built and no block
+    returns its new K/V (under remat a returned K/V would be an output that
+    stays alive). With `remat`, `cfg.remat_granularity` places
+    `torch.utils.checkpoint` as the reference places `jax.checkpoint`:
+    "layer" around each block, "group" around each repetition of the
+    pattern, "both" nested; the "rem" blocks are never rematerialised."""
+    pat, n_groups, _ = cfg.pattern_groups()
+    per_layer = remat and cfg.remat_granularity in ("layer", "both")
+    outer = remat and cfg.remat_granularity in ("group", "both")
+
+    def one(block, x):
+        return block_prefill(block, cfg, x, start_pos)[0]
+
+    def layer(block, x):
+        return _remat(partial(one, block), x) if per_layer else one(block, x)
+
+    def group(blocks, x):
+        for block in blocks:
+            x = layer(block, x)
+        return x
+
+    n = n_groups * len(pat)
+    for g in range(0, n, len(pat)):
+        blocks = lm.blocks[g:g + len(pat)]
+        h = (_remat(partial(group, blocks), h) if outer
+             else group(blocks, h))
+    for block in lm.blocks[n:]:
+        h = one(block, h)
+    return h
+
+
+def lm_hidden(lm: LM, cfg: ModelConfig, tokens, *, mode: str = "prefill",
+              caches=None, start_pos: int = 0, kv_lens=None,
+              prefix_start=None, frontend_embeds=None,
+              attention_impl: str = "torch", remat: bool = False):
+    """Run the stack over (B, S) tokens in "prefill" or "train" mode.
+    Returns (post-final-norm hidden (B, S, D), the new tokens' caches as a
+    tree — {} in train mode, which builds none).
 
     A vision model's `frontend_embeds` (B, F, D) — the stub's patch
     embeddings — go before the tokens' embeddings and occupy the first F
     positions from `start_pos` (RoPE included); their K/V are in the
     caches (F + S rows), and their rows are dropped from the hidden
-    states."""
+    states. Train mode takes no prefix and runs the reference's train path
+    (`attention_impl="torch"`), rematerialised when `remat`
+    (`_train_stack`)."""
+    if mode not in ("prefill", "train"):
+        raise ValueError(f"mode {mode!r} not in ('prefill', 'train')")
     h = embed(lm.embed.w, cfg, tokens).to(cfg.torch_dtype)
     n_front = 0
     if cfg.frontend != "none" and frontend_embeds is not None:
         n_front = frontend_embeds.shape[1]
         h = torch.cat([frontend_embeds.to(h.device, cfg.torch_dtype), h],
                       dim=1)
+    if mode == "train":
+        h = _train_stack(lm, cfg, h, start_pos, remat)
+        return lm.final_norm(h)[:, n_front:], {}
     outs = []
     for i, block in enumerate(lm.blocks):
         prefix = None if caches is None else layer_cache(cfg, caches, i)

@@ -34,7 +34,7 @@ COPIED = ["core/baselines.py",
           "cluster/elastic.py",
           "serve/__init__.py", "serve/gateway.py", "serve/client.py",
           "chaos/__init__.py", "chaos/schedule.py", "chaos/invariants.py",
-          "chaos/driver.py"]
+          "chaos/driver.py", "train/data.py"]
 
 # (reference lines removed, port lines added) per file, beyond the import
 # rewrite, each with its reason.

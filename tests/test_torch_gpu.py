@@ -45,7 +45,9 @@ counts, the cache unchanged by a capture, the refusal of a moved tensor,
 and graphed prefill and appends against the reference path byte for
 byte; whisper-small's decode chunk (its cross-attention and its
 sinusoidal row in the graph) and internvl2-26b's turn-1 prefill with its
-patch embeddings (in the program's static input), graph against eager."""
+patch embeddings (in the program's static input), graph against eager.
+A kernel launch whose input requires grad raises (no kernel has a
+backward), and the reduced model's training step launches no kernel."""
 import numpy as np
 import pytest
 
@@ -985,3 +987,33 @@ def test_vlm_prefill_with_patches_graph_equals_eager(cuda):
     np.testing.assert_array_equal(gt, et)
     np.testing.assert_array_equal(gs, es)
     assert all(torch.equal(a, b) for a, b in zip(gc, ec))
+
+
+@pytest.mark.gpu
+def test_kernel_launch_with_grad_raises(cuda):
+    """No kernel has a backward: each wrapper in `ops` refuses a launch
+    whose input requires grad while grad mode is on (its output would cut
+    the gradient), before launching and counting; under no_grad the same
+    call launches, and the reduced model's training step launches none."""
+    from repro_torch.train import AdamWConfig, adamw_init, make_train_step
+    q = torch.zeros(1, 64, 4, 16, device=cuda, requires_grad=True)
+    ops.reset_launch_counts()
+    with pytest.raises(RuntimeError, match="prefill_attention.*backward"):
+        ops.prefill_attention(q, q.detach(), q.detach(), impl="cuda")
+    lens = torch.ones(1, dtype=torch.int32, device=cuda)
+    with pytest.raises(RuntimeError, match="decode_attention"):
+        ops.decode_attention(q[:, 0], q.detach(), q.detach(), lens,
+                             impl="cuda")
+    assert not any(ops.launch_counts().values())
+    with torch.no_grad():
+        ops.prefill_attention(q, q, q, impl="cuda")
+    assert ops.launch_counts()["prefill_attention"] == 1
+    cfg = get_reduced("olmo-1b")
+    model = build_model(cfg)
+    params = model.init(0, cuda)
+    toks = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 64))
+    ops.reset_launch_counts()
+    _, _, m = make_train_step(model, AdamWConfig())(
+        params, adamw_init(params), {"tokens": toks, "labels": toks})
+    assert np.isfinite(float(m["loss"]))
+    assert not any(ops.launch_counts().values())
