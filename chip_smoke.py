@@ -110,8 +110,9 @@ Phases, each raising on failure:
      G = 6 (nemotron-4-15b), D = 240 (gemma3-12b's global layers), G = 1
      (olmo-1b) — against their plain versions as in phase 3, K1 at 16
      slots of a 1024 buffer through the 64, 256 and 1024 buckets, K2 at
-     S = 200, 256, 512 and 1024; (b) fp32 with TF32 off, full depth (cut
-     only if the weights would not fit, and printed): a 150-token prefill
+     S = 200, 256, 512 and 1024; (b) fp32 with TF32 off, full depth but
+     stablelm-12b's at 20 and nemotron-4-15b's at 16 layers
+     (`PARITY_LAYERS`; printed): a 150-token prefill
      and a decode step under "cuda" and "torch" — logits within 1e-3 of
      max(1, max|logit|), K1 and K2 each launched once per global layer —
      and 8 greedy decode steps of a ReplicaEngine pair, equal; (c) bf16 at
@@ -183,12 +184,25 @@ Phases, each raising on failure:
      against off (losses within 1e-6, gradients within 1e-5 of each
      leaf's max |g|), grad_accum=2 against the full batch (1e-5), remat
      "group", "layer" and "both" (losses within 1e-5). Prints its wall
+     time;
+ 16. launch and sharding (`repro_torch.launch`): rank 0 of the 16x16
+     production mesh, 256 ranks of torch's fake process group (every
+     collective a no-op), full width and depth: (a) qwen3-0.6b decode_32k
+     (local batch 8, 2,048 KV rows a rank), (b) olmo-1b train_4k with
+     flash_vjp, one AdamW step of a local 16 x 4096 tokens at TP 16. Each
+     cell's meta estimate (`dryrun.measure`: argument, output and temp
+     bytes, per-device and global FLOPs, collectives, local ops), then
+     the same program on the card on seeded shards: its argument bytes
+     must equal the estimate's exactly, its measured peak is printed
+     beside arguments + temp, and (a)'s logits and (b)'s loss must be
+     finite. No kernel runs (the serving program passes
+     attention_impl="torch"; training launches none). Prints its wall
      time.
 
 Every log line starts with the seconds since the script began.
 
-Each model is freed before the next is loaded. Phase 15's records are a
-log line of their own. The last four lines of standard output are the script's wall time, the card's name and power
+Each model is freed before the next is loaded. Phase 15's and phase 16's
+records are log lines of their own. The last four lines of standard output are the script's wall time, the card's name and power
 limit, one JSON object with a record per kernel (K1's and K2's with their
 phase-10 launches and, under "phase12", "phase13" and "phase14", each
 dense, MoE and frontend model's served launches and, at its heads, the
@@ -217,6 +231,11 @@ records).
 
 runs phases 1-2 and phase 15 alone and ends with the card line and phase
 15's records (no ok line).
+
+    python3 chip_smoke.py --phase16
+
+runs phases 1-2 and phase 16 alone and ends with the card line and phase
+16's records (no ok line).
 
     python3 chip_smoke.py --rotation-sweep 4,8,16,32
 
@@ -1147,6 +1166,9 @@ GRAPH_SLOTS = 16
 # of these two patterns (30 of gemma3's 48 layers, all 27 of deepseek's)
 # ran before phase 15 was added, whose time they now pay for
 GRAPH_CHECK_LAYERS = {"gemma3-12b": 12, "deepseek-v2-lite-16b": 8}
+# phase 12 (b)'s fp32 parity of the two deepest dense models at half depth
+# (of 40 and 32 layers): the time it saves pays for phase 16
+PARITY_LAYERS = {"stablelm-12b": 20, "nemotron-4-15b": 16}
 
 
 def cache_copy(eng):
@@ -1695,8 +1717,8 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8, front=None):
     step through K2/K1 ("cuda") and the torch path on the same weights —
     logits within DENSE_LOGIT_RTOL x max(1, max|logit|), K1 and K2 each
     launched once per global layer — then greedy tokens of a ReplicaEngine
-    pair over 8 decode steps, equal. Depth is cut only if the weights do
-    not fit (printed). In a MoE model each router's choices in the prefill
+    pair over 8 decode steps, equal. Depth is cut if the weights do not
+    fit (printed), and by the caller as `PARITY_LAYERS` says. In a MoE model each router's choices in the prefill
     and the decode step are recorded under both impls and compared
     (`routing_report`). `front(0)`: a vision model's patch embeddings,
     before the prompt in every prefill."""
@@ -1853,7 +1875,9 @@ def phase_dense(torch, device, card):
             f" of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
             f"norm {cfg.norm}, {cfg.activation}, gated {cfg.gated_mlp}")
         recs[arch] = dense_kernels(torch, cfg)
-        dense_fp32_parity(torch, cfg, device, card)
+        dense_fp32_parity(torch, cut_depth(
+            cfg.scaled(dtype="float32"), PARITY_LAYERS[arch], "12 (b)")
+            if arch in PARITY_LAYERS else cfg, device, card)
         gc.collect()
         if arch == "gemma3-12b":  # the pattern that differs
             dense_graphs(torch, cfg, device, card)
@@ -2786,6 +2810,89 @@ def phase_train(torch, device, card):
     return recs
 
 
+# --------------------------------------------------------------------------- #
+# phase 16: launch and sharding
+# --------------------------------------------------------------------------- #
+# (tag, arch, shape, config overrides): rank 0 of the 16x16 production mesh
+LAUNCH_CELLS = (("a", "qwen3-0.6b", "decode_32k", {}),
+                ("b", "olmo-1b", "train_4k", {"flash_vjp": True}))
+
+
+def launch_cell(torch, tag, arch, shape, overrides, card):
+    """One cell's meta estimate and rank 0's run on the card under the fake
+    group, full width and depth: the argument bytes must agree exactly and
+    the output must be finite. Returns the cell's record."""
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.launch.dryrun import measure, run_on_card
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.launch.specs import build_cell
+    cfg = get_config(arch).scaled(**overrides) if overrides else None
+    t0 = time.perf_counter()
+    fn, args = build_cell(arch, shape, make_production_mesh(device="meta"),
+                          cfg=cfg)
+    _, est = measure(fn, args)
+    del fn, args
+    mem = est["memory"]
+    log(f"  16 ({tag}) {arch} {shape} meta estimate in {est['trace_s']} s: "
+        f"{mem}; flops/device {est['flops']:.4e} (global "
+        f"{est['flops_global']:.4e}), bytes accessed {est['bytes_accessed']}"
+        f", collectives {est['collective_total']} B "
+        f"{est['collective_counts']}, {est['local_ops']} local ops")
+    out, dev = run_on_card(arch, shape, False, cfg)
+    if dev["argument_bytes"] != mem["argument_bytes"]:
+        raise AssertionError(f"16 ({tag}): {dev['argument_bytes']} argument "
+                             f"bytes on the card, {mem['argument_bytes']} "
+                             f"in the estimate")
+    if tag == "a":
+        logits = out[0].to_local()
+        shown = f"logits local {tuple(logits.shape)} of {tuple(out[0].shape)}"
+        finite = bool(torch.isfinite(logits.float()).all())
+    else:
+        loss = out[2]["loss"]
+        loss = float(loss.to_local() if hasattr(loss, "to_local") else loss)
+        shown = f"loss {loss:.6f}"
+        finite = math.isfinite(loss)
+    est_bytes = mem["argument_bytes"] + mem["temp_bytes"]
+    peak = dev["measured_peak_bytes"]
+    log(f"  16 ({tag}) on the card ({card}) in {dev['run_s']} s: arguments "
+        f"{dev['argument_bytes']} B (= the estimate's), measured peak {peak}"
+        f" B beside arguments + temp {est_bytes} B (ratio "
+        f"{peak / est_bytes:.4f}); {shown}")
+    if not finite:
+        raise AssertionError(f"16 ({tag}): non-finite output ({shown})")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"arch": arch, "shape": shape, "overrides": overrides,
+            "memory": mem, "measured_peak_bytes": peak,
+            "peak_over_estimate": peak / est_bytes, "flops": est["flops"],
+            "flops_global": est["flops_global"],
+            "bytes_accessed": est["bytes_accessed"],
+            "collective_bytes": est["collective_bytes"],
+            "collective_counts": est["collective_counts"],
+            "local_ops": est["local_ops"], "trace_s": est["trace_s"],
+            "card_run_s": dev["run_s"], "output": shown,
+            "wall_s": round(time.perf_counter() - t0, 2)}
+
+
+def phase_launch(torch, card):
+    """Phase 16: launch and sharding — rank 0 of two cells of the 16x16
+    production mesh (256 ranks of torch's fake process group, every
+    collective a no-op): (a) qwen3-0.6b decode_32k, (b) olmo-1b train_4k
+    with flash_vjp. Returns the cells' records."""
+    from repro_torch.launch.mesh import world
+    t0 = time.perf_counter()
+    log("phase 16: launch and sharding on the 16x16 mesh (fake process "
+        "group, rank 0)")
+    with world(256):
+        recs = {tag: launch_cell(torch, tag, arch, shape, over, card)
+                for tag, arch, shape, over in LAUNCH_CELLS}
+    recs["wall_s"] = round(time.perf_counter() - t0, 2)
+    log(f"phase 16 wall {recs['wall_s']:.1f} s")
+    return recs
+
+
 def rotation_sweep(torch, cfg, device, card, values):
     """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
     the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
@@ -2820,6 +2927,9 @@ def main(argv=None) -> int:
     ap.add_argument("--phase15", action="store_true",
                     help="run phases 1-2 and phase 15 (training) alone and "
                     "print its records, without the ok line")
+    ap.add_argument("--phase16", action="store_true",
+                    help="run phases 1-2 and phase 16 (launch and sharding) "
+                    "alone and print its records, without the ok line")
     ap.add_argument("--rotation-sweep", metavar="N,N,...",
                     help="after phases 1-2, serve phase 5b's trace once for "
                     "each rotation_min_chunk given, print each run's "
@@ -2891,6 +3001,12 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"phase15": train}))
         return 0
+    if args.phase16:
+        launch = phase_launch(torch, card)
+        log(f"chip_smoke --phase16 wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"phase16": launch}))
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -2916,6 +3032,8 @@ def main(argv=None) -> int:
                           vlm_recs=dense_recs["nemotron-4-15b"])
     train = phase_train(torch, device, card)
     log("phase 15 records: " + json.dumps(train))
+    launch = phase_launch(torch, card)
+    log("phase 16 records: " + json.dumps(launch))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",

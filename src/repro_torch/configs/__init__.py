@@ -6,7 +6,9 @@ frontend (internvl2-26b) and the encoder-decoder (whisper-small): every
 architecture the JAX package knows. `get_config(arch)` returns the full
 published config and `get_reduced(arch)` the family-preserving smoke-test
 reduction. `NOT_PORTED` names what the registry would refuse as not ported
-yet; it is empty."""
+yet; it is empty. `ASSIGNED` is the reference's list of the architectures
+its dry run covers (all but the paper's own qwen3-0.6b), and `SHAPES` its
+four input-shape sets (`shapes.py`, a copy of the reference's file)."""
 from __future__ import annotations
 
 import importlib
@@ -31,6 +33,11 @@ _MODULES = {
 # architectures of the reference package that this port does not serve yet
 NOT_PORTED: tuple = ()
 
+# the reference's order (its `_MODULES` order), which `dryrun --all` walks
+ASSIGNED: List[str] = [
+    "gemma3-12b", "stablelm-12b", "nemotron-4-15b", "olmo-1b",
+    "internvl2-26b", "deepseek-v2-lite-16b", "llama4-scout-17b-a16e",
+    "rwkv6-3b", "whisper-small", "recurrentgemma-9b"]
 ALL_ARCHS: List[str] = list(_MODULES)
 
 
@@ -48,4 +55,7 @@ def get_reduced(arch: str) -> ModelConfig:
     return reduced_config(get_config(arch))
 
 
-__all__ = ["get_config", "get_reduced", "ALL_ARCHS", "NOT_PORTED"]
+from .shapes import SHAPES, ShapeSpec, get_shape  # noqa: E402
+
+__all__ = ["get_config", "get_reduced", "ASSIGNED", "ALL_ARCHS",
+           "NOT_PORTED", "SHAPES", "ShapeSpec", "get_shape"]

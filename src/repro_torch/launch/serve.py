@@ -1,17 +1,21 @@
 """Serving launcher of the port: the ConServe deployment driver.
 
-Two modes:
+Three modes:
   --engine  : real replicas of the port on one device (the card by
               default; `--device cpu` for a CPU run)
   --sim     : the calibrated discrete-event cluster runtime (no model, no
               device)
+  (default) : the production-mesh dry run of `--arch`'s prefill_32k and
+              decode_32k cells (`launch.dryrun.estimate_cell`): each
+              per-device memory record, on `--device meta` the estimate
+              only, on cuda also rank 0's measured peak on the card
 
 Both drive their backend through the ONE shared
 `repro_torch.core.runtime.Runtime` contract (submit/run/results + admission
 control), so the launcher — like the schedulers — cannot tell the two
 scales apart.
 
-  python -m repro_torch.launch.serve (--engine | --sim)
+  python -m repro_torch.launch.serve [--engine | --sim] [--multi-pod]
          [--arch qwen3-0.6b|olmo-1b|stablelm-12b|nemotron-4-15b|gemma3-12b|
                  rwkv6-3b|recurrentgemma-9b|deepseek-v2-lite-16b|
                  llama4-scout-17b-a16e|internvl2-26b|whisper-small]
@@ -92,7 +96,10 @@ def main(argv=None):
     ap.add_argument("--engine", action="store_true")
     ap.add_argument("--sim", action="store_true")
     ap.add_argument("--device", default="cuda",
-                    help="engine: the replicas' device")
+                    help="engine: the replicas' device; default mode: cuda "
+                         "(the estimate, then rank 0 on the card) or meta")
+    ap.add_argument("--multi-pod", action="store_true",
+                    help="default mode: the 2x16x16 mesh")
     ap.add_argument("--scheduler", default="conserve",
                     choices=sorted(SCHEDULERS))
     ap.add_argument("--n-conversations", type=int, default=12)
@@ -168,8 +175,19 @@ def main(argv=None):
         _drive(sim, trace, gateway=args.gateway)
         return
 
-    ap.error("pass --engine or --sim: lowering for a production mesh is "
-             "not ported to repro_torch yet")
+    from repro_torch.launch.dryrun import estimate_cell
+    from repro_torch.launch.mesh import make_production_mesh, world, \
+        world_size
+
+    if args.device not in ("cuda", "meta"):
+        ap.error("the production-mesh dry run runs on --device cuda or meta")
+    with world(world_size(multi_pod=args.multi_pod)):
+        mesh = make_production_mesh(multi_pod=args.multi_pod, device="meta")
+        for name in ("prefill_32k", "decode_32k"):
+            counts = estimate_cell(args.arch, name, mesh, None, args.device,
+                                   args.multi_pod)
+            print(f"{name}: traced OK on {tuple(mesh.shape)}; "
+                  f"{counts['memory']}")
 
 
 if __name__ == "__main__":

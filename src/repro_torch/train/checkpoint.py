@@ -121,20 +121,44 @@ def _load(path: Path, ent: Dict[str, Any]) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _shard_of(full: torch.Tensor, mesh, placements, dtype):
+    """This rank's shard of `full` under `placements` on `mesh`, as a
+    DTensor: sliced locally (no collective), on the mesh's device."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    shape, offset = compute_local_shape_and_global_offset(
+        full.shape, mesh, placements)
+    local = full[tuple(slice(o, o + n) for o, n in zip(offset, shape))]
+    dev = (torch.device("cuda", torch.cuda.current_device())
+           if mesh.device_type == "cuda" else torch.device(mesh.device_type))
+    return DTensor.from_local(local.to(dev, dtype).contiguous(), mesh,
+                              placements, run_check=False, shape=full.shape,
+                              stride=full.contiguous().stride())
+
+
 @torch.no_grad()
-def restore_checkpoint(ckpt_dir: str, step: int, params_like, opt_like):
+def restore_checkpoint(ckpt_dir: str, step: int, params_like, opt_like,
+                       shardings: Optional[Dict[str, Tuple[Any, Any]]] = None):
     """Restore step `step` into the structure of (params_like, opt_like):
     the module's parameters are overwritten in place (each cast to its own
     dtype, its shape checked), and the state is built on the module's
     device in opt_like's dtypes (opt_like may be `adamw_state_skeleton`'s
     meta tensors). Returns (params_like, the state, the manifest's
     "extra"). A missing leaf raises KeyError, a shape mismatch
-    ValueError."""
+    ValueError.
+
+    `shardings` {parameter name: (mesh, placements)} is the elastic
+    resharding path (the reference's `shardings`): each named parameter
+    becomes a DTensor parameter holding this rank's shard of the saved
+    array, sliced out of it with no collective, and its AdamW moments are
+    placed like it."""
     d = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((d / "manifest.json").read_text())
     by_tree: Dict[str, Dict[str, Dict[str, Any]]] = {"params": {}, "opt": {}}
     for ent in manifest["keys"]:
         by_tree[ent["tree"]][ent["key"]] = ent
+    shardings = shardings or {}
 
     def fetch(tree, key, targets, stacked):
         if key not in by_tree[tree]:
@@ -147,13 +171,20 @@ def restore_checkpoint(ckpt_dir: str, step: int, params_like, opt_like):
                              f"{tuple(saved.shape)} vs target {want}")
         return list(saved) if stacked else [saved]
 
-    dev = params_like.embed.w.device
     ps = dict(params_like.named_parameters())
     layout = reference_leaves(params_like)
     for key, names, stacked in layout:
         for n, saved in zip(names, fetch("params", key,
                                          [ps[n] for n in names], stacked)):
-            ps[n].copy_(saved.to(ps[n].dtype))
+            if n not in shardings:
+                ps[n].copy_(saved.to(ps[n].dtype))
+                continue
+            owner = (params_like.get_submodule(n.rsplit(".", 1)[0])
+                     if "." in n else params_like)
+            setattr(owner, n.rsplit(".", 1)[-1], torch.nn.Parameter(
+                _shard_of(saved, *shardings[n], ps[n].dtype),
+                requires_grad=False))
+    dev = params_like.embed.w.device  # a DTensor's is its shard's
     opt: Dict[str, Any] = {}
     for sec in ("mu", "nu"):
         got: Dict[str, torch.Tensor] = {}
@@ -161,7 +192,9 @@ def restore_checkpoint(ckpt_dir: str, step: int, params_like, opt_like):
             likes = [opt_like[sec][n] for n in names]
             for n, like, saved in zip(names, likes, fetch(
                     "opt", f"[{sec!r}]{key}", likes, stacked)):
-                got[n] = saved.to(ps[n].device, like.dtype)
+                got[n] = (_shard_of(saved, *shardings[n], like.dtype)
+                          if n in shardings
+                          else saved.to(ps[n].device, like.dtype))
         opt[sec] = {n: got[n] for n in ps}
     opt["step"] = fetch("opt", "['step']", [opt_like["step"]], False)[0].to(
         dev, opt_like["step"].dtype)

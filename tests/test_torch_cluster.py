@@ -34,7 +34,7 @@ COPIED = ["core/baselines.py",
           "cluster/elastic.py",
           "serve/__init__.py", "serve/gateway.py", "serve/client.py",
           "chaos/__init__.py", "chaos/schedule.py", "chaos/invariants.py",
-          "chaos/driver.py", "train/data.py"]
+          "chaos/driver.py", "train/data.py", "configs/shapes.py"]
 
 # (reference lines removed, port lines added) per file, beyond the import
 # rewrite, each with its reason.
@@ -229,10 +229,28 @@ def test_launcher_sim_prints_the_reference_lines(flags):
     assert outs[1] == outs[0]
 
 
-def test_launcher_refuses_the_mesh_mode():
+def test_launcher_refuses_the_mesh_mode(monkeypatch, capsys):
+    """The launcher no longer refuses the mode without --engine or --sim:
+    it dry-runs prefill_32k and decode_32k on the production mesh and
+    prints each per-device memory record (here on the meta device, on the
+    reduced config with the shapes cut: the published prefill_32k takes
+    minutes to trace on a CPU). --device cpu is refused."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec, get_reduced, shapes
+    from repro_torch.launch import specs
     from repro_torch.launch.serve import main
+    monkeypatch.setitem(shapes.SHAPES, "prefill_32k",
+                        ShapeSpec("prefill_32k", 64, 32, "prefill"))
+    monkeypatch.setitem(shapes.SHAPES, "decode_32k",
+                        ShapeSpec("decode_32k", 128, 32, "decode"))
+    monkeypatch.setattr(specs, "get_config", get_reduced)
+    main(["--arch", "qwen3-0.6b", "--device", "meta"])
+    out = capsys.readouterr().out
+    for name in ("prefill_32k", "decode_32k"):
+        assert f"{name}: traced OK on (16, 16); {{'argument_bytes'" in out
+    assert not dist.is_initialized()
     with pytest.raises(SystemExit):
-        main(["--arch", "qwen3-0.6b"])
+        main(["--arch", "qwen3-0.6b", "--device", "cpu"])
 
 
 def test_same_policy_class_drives_sim_and_engine():

@@ -1017,3 +1017,37 @@ def test_kernel_launch_with_grad_raises(cuda):
         params, adamw_init(params), {"tokens": toks, "labels": toks})
     assert np.isfinite(float(m["loss"]))
     assert not any(ops.launch_counts().values())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", ["decode_32k", "train_4k"])
+def test_rank0_of_a_reduced_cell_on_the_card(cuda, shape, monkeypatch):
+    """The dry run's card path (`launch.dryrun.run_on_card`): rank 0 of the
+    16x16 mesh under torch's fake process group, on reduced qwen3-0.6b with
+    the shapes cut, runs on CUDA tensors. Its argument bytes equal the meta
+    estimate's exactly; its measured peak holds at least the arguments and
+    is printed beside arguments + temp; its output is finite."""
+    import torch.distributed as dist
+    from repro_torch.configs import ShapeSpec, shapes
+    from repro_torch.launch.dryrun import measure, run_on_card
+    from repro_torch.launch.mesh import make_production_mesh, world
+    from repro_torch.launch.specs import build_cell
+    monkeypatch.setitem(shapes.SHAPES, "decode_32k",
+                        ShapeSpec("decode_32k", 512, 32, "decode"))
+    monkeypatch.setitem(shapes.SHAPES, "train_4k",
+                        ShapeSpec("train_4k", 128, 32, "train"))
+    cfg = get_reduced("qwen3-0.6b").scaled(dtype="bfloat16")
+    with world(256):
+        _, est = measure(*build_cell("qwen3-0.6b", shape,
+                                     make_production_mesh(device="meta"),
+                                     cfg=cfg))
+        out, dev = run_on_card("qwen3-0.6b", shape, False, cfg)
+        mem = est["memory"]
+        assert dev["argument_bytes"] == mem["argument_bytes"]
+        assert dev["measured_peak_bytes"] >= mem["argument_bytes"]
+        print(f"{shape}: measured peak {dev['measured_peak_bytes']} B, "
+              f"estimate {mem['argument_bytes'] + mem['temp_bytes']} B")
+        res = out[0] if shape == "decode_32k" else out[2]["loss"]
+        assert torch.isfinite(res.to_local().float()).all()
+        del out, res
+    assert not dist.is_initialized()

@@ -42,7 +42,9 @@ def test_port_sources_are_found():
             "prefill_attention.py", "wkv6.py", "rglru.py", "recurrent.py",
             "recurrentgemma_9b.py", "chip_smoke.py", "baselines.py",
             "simulator.py", "gateway.py", "driver.py", "encdec.py",
-            "internvl2_26b.py", "whisper_small.py"} <= names
+            "internvl2_26b.py", "whisper_small.py", "shapes.py",
+            "sharding.py", "mesh.py", "specs.py", "dryrun.py", "reprobe.py",
+            "train.py"} <= names
     assert len(FILES) > 25
 
 
@@ -57,6 +59,8 @@ def test_entry_points_import_without_jax_or_repro():
             "import repro_torch.engine, repro_torch.launch.serve\n"
             "import repro_torch.kernels.ops, repro_torch.traces\n"
             "import repro_torch.cluster, repro_torch.serve, repro_torch.chaos\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.train\n"
+            "import repro_torch.launch.specs, repro_torch.launch.reprobe\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
             f"{FORBIDDEN!r})\n"
             "print(bad)\n"
