@@ -120,7 +120,7 @@ Phases, each raising on failure:
      transfer each, K1's launches a positive multiple of the global
      layers, K2's the global layers times the 8 turn-1 prefills, K3 and
      K4 at 0; (d) gemma3-12b, whose pattern differs: phase 11's graph
-     against eager check in fp32, at 12 layers (two repetitions of its
+     against eager check in fp32, at 6 layers (one repetition of its
      pattern; printed). Prints its wall time;
  13. MLA and MoE, each model freed before the next: (a) K1 and K2 at
      llama4-scout's heads (40 / 8 x 128, G = 5) against their plain
@@ -162,8 +162,8 @@ Phases, each raising on failure:
      + 36,864 B x its length, K1 = 12 x the graphed decode steps, K2 = 12 x
      8 eager turn-1 prefills — then a 16-slot step, the device time of its
      12 cross-attentions, and an eager 150-token prefill beside the
-     encoder alone; internvl2-26b (d) fp32 at the depth that holds phase
-     11's cache copies (printed): impls as phase 12 (b) and graphs against
+     encoder alone; internvl2-26b (d) fp32 at 16 layers (printed; 32 fit
+     beside phase 11's cache copies): impls as phase 12 (b) and graphs against
      eager, byte-identical, with seeded patches; (e) bf16 at full width and
      depth served as 5b — transfers of 196,608 B x (256 + the first
      input), K1 = 48 x the graphed decode steps, K2 = 48 x 8 graphed
@@ -197,11 +197,31 @@ Phases, each raising on failure:
      beside arguments + temp, and (a)'s logits and (b)'s loss must be
      finite. No kernel runs (the serving program passes
      attention_impl="torch"; training launches none). Prints its wall
-     time.
+     time;
+ 17. the prefix pool, qwen3-0.6b at full width (seeded weights, CUDA
+     graphs, TF32 off), a hit folding the pooled preamble rows into the
+     slot and replaying the append graph its miss replays: (a) the fleet
+     of the reference's benchmarks/prefix_reuse.py (16 conversations
+     sharing one 192-token preamble, a 64-token delta each, 4 slots of
+     512, a pool of 768 tokens, each slot released after its turn-1) in
+     bf16 and fp32, pooled and pool-less (a warm pass and 3 measured ones
+     each) and pooled with `cuda_graphs=False` (a warm pass and one
+     measured one) — tokens equal pooled vs pool-less, 1 miss + 15 hits
+     then 16 hits a pass, K2 28 a miss and 0 a hit, the median hit no
+     slower than the median miss; the turn-1 context tokens/s and the
+     eager hit's dt printed; (b) fp32, `shared_preamble_fleet(8, seed=0,
+     scale="engine")` under ConServe, 1 prefiller + 2 decoders of 16
+     slots of 1024, each replica's pool 1024 tokens, one set of replicas
+     for three runs: pool off, pool on, and pool on with decoder 1 killed
+     as it begins decoding a turn >= 1 (phase 10's trigger) — streams
+     byte-identical off vs on, the killed run's equal to the pool-on
+     run's by phase 10's rule, the prefiller hit, K2 28 x each turn-1
+     prefill the pool did not serve; TTFET, TBT, prefill tokens/s, hits
+     and compile_s printed. Prints its wall time.
 
 Every log line starts with the seconds since the script began.
 
-Each model is freed before the next is loaded. Phase 15's and phase 16's
+Each model is freed before the next is loaded. Phase 15's, 16's and 17's
 records are log lines of their own. The last four lines of standard output are the script's wall time, the card's name and power
 limit, one JSON object with a record per kernel (K1's and K2's with their
 phase-10 launches and, under "phase12", "phase13" and "phase14", each
@@ -237,6 +257,19 @@ runs phases 1-2 and phase 15 alone and ends with the card line and phase
 runs phases 1-2 and phase 16 alone and ends with the card line and phase
 16's records (no ok line).
 
+    python3 chip_smoke.py --phase17
+
+runs phases 1-2 and phase 17 alone and ends with the card line and phase
+17's records (no ok line).
+
+    python3 chip_smoke.py --fp32-gaps
+
+builds the kernels, then runs stablelm-12b, internvl2-26b and
+nemotron-4-15b in fp32 at the depth that fits under both attention impls
+and prints, layer by layer, K2's and the torch path's attention against
+float64 on the same inputs and how far the two runs' hidden states have
+parted (no ok line).
+
     python3 chip_smoke.py --rotation-sweep 4,8,16,32
 
 builds the kernels, then serves phase 5b's run once for each
@@ -245,6 +278,7 @@ line).
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -842,30 +876,33 @@ def golden_summary(cfg, params, device):
 
 def serve_main_path(cfg, params, n_conversations=8, n_slots=16,
                     max_ctx=1024, scheduler="conserve", server_cls=None,
-                    live=False, server_kw=None):
+                    live=False, server_kw=None, trace=None, reps=None):
     """The launcher's engine deployment under `scheduler` (1 prefiller + 2
-    decoders, or 3 mixed replicas under collocated) on its engine trace,
-    tokens recorded, each replica through its CUDA graphs (the default).
-    `live` serves it through the gateway (`serve_scenario_live`);
-    `server_kw` goes to the server. Returns (summary, server, replicas,
-    gateway or None)."""
+    decoders, or 3 mixed replicas under collocated) on its engine trace (or
+    `trace()`, a function of n_conversations), tokens recorded, each
+    replica through its CUDA graphs (the default), or on the replicas
+    `reps` given. `live` serves it through the gateway
+    (`serve_scenario_live`); `server_kw` goes to the server. Returns
+    (summary, server, replicas, gateway or None)."""
     from repro_torch.core import make_scheduler
     from repro_torch.core.metrics import summarize
     from repro_torch.engine import EngineServer, ReplicaEngine
     from repro_torch.launch.serve import engine_roles, engine_trace
-    reps = [ReplicaEngine(cfg, params, n_slots=n_slots, max_ctx=max_ctx,
-                          replica_id=i, role=role, attention_impl="cuda")
-            for i, role in enumerate(engine_roles(scheduler))]
+    if reps is None:
+        reps = [ReplicaEngine(cfg, params, n_slots=n_slots, max_ctx=max_ctx,
+                              replica_id=i, role=role, attention_impl="cuda")
+                for i, role in enumerate(engine_roles(scheduler))]
     srv = (server_cls or EngineServer)(make_scheduler(scheduler), reps,
                                        record_tokens=True,
                                        strict_accounting=True,
                                        **(server_kw or {}))
+    convs = (trace or engine_trace)(n_conversations)
     gw = None
     if live:
         from repro_torch.serve import serve_scenario_live
-        recs, gw, _ = serve_scenario_live(srv, engine_trace(n_conversations))
+        recs, gw, _ = serve_scenario_live(srv, convs)
     else:
-        recs = srv.serve(engine_trace(n_conversations))
+        recs = srv.serve(convs)
     s = summarize(recs)
     if s["n_conversations"] != n_conversations:
         raise AssertionError(f"{s['n_conversations']} of {n_conversations} "
@@ -1162,10 +1199,13 @@ def phase_rg_serve(torch, cfg, device, card):
 # phase 11: the replica's CUDA graphs against the same bodies run eagerly
 # --------------------------------------------------------------------------- #
 GRAPH_SLOTS = 16
-# the depths of the fp32 graph checks 12 (d) and 13 (d): whole-depth checks
-# of these two patterns (30 of gemma3's 48 layers, all 27 of deepseek's)
-# ran before phase 15 was added, whose time they now pay for
-GRAPH_CHECK_LAYERS = {"gemma3-12b": 12, "deepseek-v2-lite-16b": 8}
+# the depths of the fp32 graph checks 12 (d), 13 (d) and 14 (d): whole-depth
+# checks of these patterns (30 of gemma3's 48 layers, all 27 of deepseek's)
+# ran before phase 15 was added, whose time they pay for; gemma3's one
+# repetition of its pattern (12 before) and internvl2's 16 layers (32, all
+# that fit, before) pay for phase 17
+GRAPH_CHECK_LAYERS = {"gemma3-12b": 6, "deepseek-v2-lite-16b": 8,
+                      "internvl2-26b": 16}
 # phase 12 (b)'s fp32 parity of the two deepest dense models at half depth
 # (of 40 and 32 layers): the time it saves pays for phase 16
 PARITY_LAYERS = {"stablelm-12b": 20, "nemotron-4-15b": 16}
@@ -1459,7 +1499,8 @@ def two_order_logits(torch, model, params, segments, device):
 NEAR_TIE_BAND_MAX = 4  # fp32: the most tokens the band may hold
 
 
-def tie_report(torch, cfg, params, srv, want, got, cid, turn, pos, device):
+def tie_report(torch, cfg, params, srv, want, got, cid, turn, pos, device,
+               trace=None):
     """Recompute the logits at the first position where `got` leaves
     `want`, in both orders, and print for each order the two tokens' ranks
     and gaps to the top logit, the orders' largest logit difference delta,
@@ -1467,10 +1508,11 @@ def tie_report(torch, cfg, params, srv, want, got, cid, turn, pos, device):
     (both tokens lie in the band in both orders, the larger band count).
     The recompute runs at batch 1, so K1's split plan and the projection
     shapes need not be the engine's: delta is the two orders' difference
-    at batch 1, not the difference the engine saw."""
+    at batch 1, not the difference the engine saw. `trace` is the served
+    trace's function of n_conversations (the engine trace by default)."""
     from repro_torch.launch.serve import engine_trace
     from repro_torch.models import build_model
-    conv = next(c for c in engine_trace(8) if c.cid == cid)
+    conv = next(c for c in (trace or engine_trace)(8) if c.cid == cid)
     segments = []
     for t in range(turn):
         segments += [("prefill", srv._turn_tokens(conv, t)),
@@ -1809,8 +1851,8 @@ def dense_graphs(torch, cfg, device, card):
     """(d) phase 11's check in fp32 (TF32 off) on fresh weights: the CUDA
     graphs against the same bodies run eagerly, tokens equal and caches
     byte-identical after every chunk, at GRAPH_CHECK_LAYERS[arch] layers
-    (printed): its pattern's two repetitions, which pay for phase 15's
-    time."""
+    (printed): one repetition of its pattern, which pays for phases 15
+    and 17."""
     from repro_torch.models import build_model
     cfg = cut_depth(cfg.scaled(dtype="float32"),
                     GRAPH_CHECK_LAYERS[cfg.name], "12 (d)")
@@ -2494,6 +2536,8 @@ def phase_front(torch, device, card):
     f32 = v.scaled(dtype="float32")
     cache_layer = 2 * f32.n_kv_heads * f32.head_dim * 4 * 1024 * GRAPH_SLOTS
     f32 = fit_depth(torch, f32, per_layer_extra=4 * cache_layer)
+    f32 = cut_depth(f32, min(f32.n_layers, GRAPH_CHECK_LAYERS[v.name]),
+                    "14 (d)")
     log(f"  (d) {v.name} fp32 at {f32.n_layers} layers: impls, then graphs")
     dense_fp32_parity(torch, f32, device, card,
                       front=front_maker(torch, f32, device))
@@ -2893,6 +2937,388 @@ def phase_launch(torch, card):
     return recs
 
 
+# --------------------------------------------------------------------------- #
+# phase 17: the prefix pool on the card, qwen3-0.6b
+# --------------------------------------------------------------------------- #
+# (a) the fleet of benchmarks/prefix_reuse.py in its non-quick form
+POOL_CONVS, POOL_PREAMBLE, POOL_DELTA = 16, 192, 64
+POOL_SLOTS, POOL_MAX_CTX, POOL_PASSES = 4, 512, 3
+# (b) each served replica's pool
+SERVED_POOL_TOKENS = 1024
+
+
+def pool_fleet(vocab):
+    """The reference benchmark's fleet (its `_fleet`): one shared preamble
+    and a delta each, from RandomState(7)."""
+    import numpy as np
+    rng = np.random.RandomState(7)
+    pre = rng.randint(0, vocab, size=POOL_PREAMBLE).astype(np.int32)
+    return pre, [rng.randint(0, vocab, size=POOL_DELTA).astype(np.int32)
+                 for _ in range(POOL_CONVS)]
+
+
+def pool_pass(eng, pre, deltas):
+    """Each conversation's turn-1 split at the preamble, its slot released
+    at once (the fleet outnumbers the slots: pool reuse, not slot reuse, is
+    under test). Returns per conversation (token, dt, hit, K2 launches)."""
+    import numpy as np
+    from repro_torch.kernels import ops
+    out = []
+    pool = eng.prefix_pool
+    for delta in deltas:
+        hits = pool.total_hits if pool is not None else 0
+        k2 = ops.launch_counts()["prefill_attention"]
+        slot = eng.kv.acquire()
+        tok, dt = eng.prefill_conversation(
+            slot, np.concatenate([pre, delta]), prefix_len=len(pre))
+        eng.kv.release(slot)
+        out.append((int(tok), dt,
+                    pool is not None and pool.total_hits > hits,
+                    ops.launch_counts()["prefill_attention"] - k2))
+    return out
+
+
+def pool_replica(torch, cfg, params, card):
+    """Phase 17 (a) in one dtype: the fleet through a pooled and a
+    pool-less replica (CUDA graphs), a warm pass and POOL_PASSES measured
+    ones each, and a pooled one with `cuda_graphs=False` (the hit's body
+    run eagerly, for its time), a warm pass and one measured one. Gates: tokens equal pooled vs
+    pool-less in every pass; 1 miss + 15 hits in the warm pass, 16 hits in
+    each measured one; K2 launched once a layer by each miss and never by
+    a hit; the median hit dt <= the median miss dt (the reference's CI gate
+    pooled >= no-pool, per prefill). Returns its record."""
+    import numpy as np
+    from repro_torch.engine import ReplicaEngine
+    L = cfg.n_layers
+    pre, deltas = pool_fleet(cfg.vocab_size)
+    ctx_tokens = POOL_CONVS * (POOL_PREAMBLE + POOL_DELTA)
+    runs = {}
+    for name, pool, graphs, n in (("no_pool", 0, True, POOL_PASSES),
+                                  ("pooled", 4 * POOL_PREAMBLE, True,
+                                   POOL_PASSES),
+                                  ("pooled_eager", 4 * POOL_PREAMBLE, False,
+                                   1)):
+        eng = ReplicaEngine(cfg, params, n_slots=POOL_SLOTS,
+                            max_ctx=POOL_MAX_CTX, attention_impl="cuda",
+                            prefix_pool_tokens=pool, cuda_graphs=graphs)
+        passes = [pool_pass(eng, pre, deltas) for _ in range(1 + n)]
+        runs[name] = dict(passes=passes, compile_s=eng.compile_s)
+        del eng
+    toks = {n: [[p[0] for p in ps] for ps in r["passes"]]
+            for n, r in runs.items()}
+    if toks["pooled"] != toks["no_pool"]:
+        raise AssertionError(f"{cfg.dtype}: pool on/off changed the "
+                             f"sampled turn-1 tokens")
+    for n in ("pooled", "pooled_eager"):
+        got = [[p[2] for p in ps] for ps in runs[n]["passes"]]
+        want = [[False] + [True] * (POOL_CONVS - 1)] + \
+            [[True] * POOL_CONVS] * (len(got) - 1)
+        if got != want:
+            raise AssertionError(f"{cfg.dtype} {n}: hits by pass {got}")
+    for n, r in runs.items():
+        bad = [p for ps in r["passes"] for p in ps
+               if p[3] != (0 if p[2] else L)]
+        if bad:
+            raise AssertionError(f"{cfg.dtype} {n}: K2 launched {bad[0][3]}"
+                                 f" times by a {'hit' if bad[0][2] else 'miss'}"
+                                 f", not {0 if bad[0][2] else L}")
+
+    def measured(n, hit):
+        return [p[1] for ps in runs[n]["passes"][1:] for p in ps
+                if p[2] == hit]
+    miss_ms = 1e3 * float(np.median(measured("no_pool", False)))
+    hit_ms = 1e3 * float(np.median(measured("pooled", True)))
+    eager_ms = 1e3 * float(np.median(measured("pooled_eager", True)))
+    tok_s = {n: [ctx_tokens / sum(p[1] for p in ps)
+                 for ps in r["passes"][1:]] for n, r in runs.items()}
+    n_eq = sum(a == b for ps, qs in zip(toks["pooled_eager"],
+                                        toks["pooled"])
+               for a, b in zip(ps, qs))
+    log(f"  (a) {cfg.dtype}: {POOL_CONVS} conversations x ({POOL_PREAMBLE}"
+        f" shared + {POOL_DELTA}) tokens, {POOL_SLOTS} slots of "
+        f"{POOL_MAX_CTX}, pool {4 * POOL_PREAMBLE} tokens: tokens equal "
+        f"pooled vs no-pool in all {1 + POOL_PASSES} passes; 1 miss + "
+        f"{POOL_CONVS - 1} hits, then {POOL_CONVS} hits a pass; K2 {L} a "
+        f"miss, 0 a hit; the eager run's tokens equal the graphed ones' "
+        f"{n_eq} of {2 * POOL_CONVS}")
+    log(f"  [{card}] (a) {cfg.dtype}: turn-1 context tok/s by measured "
+        f"pass: no-pool {', '.join(f'{x:.1f}' for x in tok_s['no_pool'])}"
+        f"; pooled {', '.join(f'{x:.1f}' for x in tok_s['pooled'])}; "
+        f"pooled, eager hits "
+        f"{', '.join(f'{x:.1f}' for x in tok_s['pooled_eager'])}")
+    log(f"  [{card}] (a) {cfg.dtype}: median dt, miss (no-pool) "
+        f"{miss_ms:.3f} ms, graphed hit {hit_ms:.3f} ms, eager hit "
+        f"(cuda_graphs=False) {eager_ms:.3f} ms; compile_s "
+        + ", ".join(f"{n} {r['compile_s']:.3f} s" for n, r in runs.items()))
+    if not hit_ms <= miss_ms:
+        raise AssertionError(f"{cfg.dtype}: the median hit {hit_ms:.3f} ms "
+                             f"is slower than the median miss "
+                             f"{miss_ms:.3f} ms")
+    return {"miss_ms": round(miss_ms, 4), "hit_ms": round(hit_ms, 4),
+            "eager_hit_ms": round(eager_ms, 4),
+            "tok_s": {n: [round(x, 1) for x in v] for n, v in tok_s.items()},
+            "compile_s": {n: round(r["compile_s"], 3)
+                          for n, r in runs.items()}}
+
+
+def fleet_trace(n):
+    """`shared_preamble_fleet` at engine scale: 3 preambles of 64 tokens,
+    share 0.8, bursts of 4, first inputs up to 400."""
+    from repro_torch.traces import make_scenario
+    return make_scenario("shared_preamble_fleet", n, seed=0, scale="engine")
+
+
+@contextlib.contextmanager
+def counting_turn1_prefills():
+    """Count the server's turn-1 prefills, arrivals and replays: the calls
+    of `ReplicaEngine.prefill_conversation` from outside it (a miss calls
+    it once more, on its preamble)."""
+    from repro_torch.engine import ReplicaEngine
+    orig = ReplicaEngine.prefill_conversation
+    state = {"depth": 0, "n": 0}
+
+    def counted(self, *args, **kw):
+        state["n"] += state["depth"] == 0
+        state["depth"] += 1
+        try:
+            return orig(self, *args, **kw)
+        finally:
+            state["depth"] -= 1
+    ReplicaEngine.prefill_conversation = counted
+    try:
+        yield state
+    finally:
+        ReplicaEngine.prefill_conversation = orig
+
+
+def pool_served(torch, cfg, params, card):
+    """Phase 17 (b), fp32: `fleet_trace(8)` under ConServe, 1 prefiller +
+    2 decoders of 16 slots of 1024, pool off, pool on (every replica
+    SERVED_POOL_TOKENS) and pool on with decoder 1 killed as it begins
+    decoding a turn >= 1. One set of replicas serves the three runs (their
+    graphs captured as the first needs them, the time paid once), each run
+    from counters at 0 and new pools. Gates: streams byte-identical off vs
+    on; the killed run's equal to the pool-on run's by phase 10's rule;
+    the prefiller hit; K2 launched once a layer by each turn-1 prefill the
+    pool did not serve. Returns each run's record."""
+    from repro_torch.core.runtime import PrefixKVPool
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.launch.serve import engine_roles
+    L = cfg.n_layers
+    reps = [ReplicaEngine(cfg, params, n_slots=16, max_ctx=1024,
+                          replica_id=i, role=role, attention_impl="cuda")
+            for i, role in enumerate(engine_roles("conserve"))]
+    recs, runs = {}, {}
+    for label, pool, cls in (("pool off", 0, None),
+                             ("pool on", SERVED_POOL_TOKENS, None),
+                             ("pool on, killed", SERVED_POOL_TOKENS,
+                              kill_when_decoding())):
+        for r in reps:
+            r.prefix_pool = PrefixKVPool(pool) if pool else None
+            r.compute_s = r.compile_s = r.decode_s = r.prefill_s = 0.0
+            r.n_prefill_tokens = r.n_decode_tokens = 0
+            r.n_pooled_prefix_tokens = 0
+        with counting_turn1_prefills() as turn1:
+            _, run = serve_and_count(
+                torch, cfg, params, card, PATH_KERNELS, f"(b) {label}: ",
+                server_cls=cls, trace=fleet_trace, reps=reps)
+        srv = run["srv"]
+        hits = sum(r.prefix_pool.total_hits for r in reps
+                   if r.prefix_pool is not None)
+        k2 = run["launches"]["prefill_attention"]
+        pre_tok = sum(r.n_prefill_tokens for r in reps)
+        pre_s = sum(r.prefill_s for r in reps)
+        log(f"    {turn1['n']} turn-1 prefills, {hits} pool hits (the "
+            f"prefiller's {srv.states[0].pooled_prefix_hits}), "
+            f"{sum(r.n_pooled_prefix_tokens for r in reps)} pooled prefix "
+            f"tokens, K2 {k2} = {L} x {k2 / L:g}")
+        if k2 != L * (turn1["n"] - hits):
+            raise AssertionError(f"{label}: K2 launched {k2} times, not "
+                                 f"{L} x ({turn1['n']} turn-1 prefills - "
+                                 f"{hits} hits)")
+        if pool and srv.states[0].pooled_prefix_hits <= 0:
+            raise AssertionError(f"{label}: the prefiller's pool was never "
+                                 f"hit")
+        s = run["summary"]
+        recs[label] = {
+            "ttfet_p95_s": round(s["ttfet_p95"], 4),
+            "last_tbt_gmean_ms": round(s["last_tbt_gmean"] * 1e3, 3),
+            "last_tbt_p95_ms": round(s["last_tbt_p95"] * 1e3, 3),
+            "prefill_tok_s": round(pre_tok / pre_s, 1),
+            "turn1_prefills": turn1["n"], "pool_hits": hits,
+            "compile_s": round(sum(r.compile_s for r in reps), 3),
+            "launches": run["launches"]}
+        if cls is not None:
+            if srv.killed is None or srv.n_recoveries < 1:
+                raise AssertionError("decoder 1 never decoded a turn >= 1")
+            cid, turn, _, t_kill = srv.killed
+            log(f"    killed decoder 1 at {t_kill:.4f} s as conversation "
+                f"{cid} began decoding turn {turn}; recoveries "
+                f"{srv.n_recoveries}")
+            recs[label]["recoveries"] = srv.n_recoveries
+        runs[label] = run
+    off, on = runs["pool off"]["streams"], runs["pool on"]["streams"]
+    n_eq, n = count_equal(off, on)
+    log(f"  (b) {n_eq} of {n} (cid, turn) streams byte-identical pool off "
+        f"vs on")
+    if on != off:
+        for cid, turn, pos in first_divergences(off, on):
+            tie_report(torch, cfg, params, runs["pool on"]["srv"], off, on,
+                       cid, turn, pos, params.device, trace=fleet_trace)
+        raise AssertionError("fp32 streams differ pool off vs on")
+    killed = runs["pool on, killed"]
+    n_eq, n = count_equal(on, killed["streams"])
+    log(f"  (b) {n_eq} of {n} (cid, turn) streams of the killed run "
+        f"byte-identical to the pool-on run's")
+    for cid, turn, pos in first_divergences(on, killed["streams"]):
+        in_band, band = tie_report(torch, cfg, params, killed["srv"], on,
+                                   killed["streams"], cid, turn, pos,
+                                   params.device, trace=fleet_trace)
+        if not (in_band and band <= NEAR_TIE_BAND_MAX):
+            raise AssertionError("fp32 replay with the pool on diverged, "
+                                 "not at a near-tie")
+    recs["streams_equal"] = {"off_vs_on": count_equal(off, on),
+                             "killed_vs_on": (n_eq, n)}
+    return recs
+
+
+def phase_pool(torch, device, card):
+    """Phase 17: the prefix pool on the card — qwen3-0.6b at full width,
+    seeded weights, CUDA graphs, TF32 off: (a) the replica level in bf16
+    and fp32, (b) served in fp32. Returns its records."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    t0 = time.perf_counter()
+    cfg = get_config("qwen3-0.6b")
+    log(f"phase 17: {cfg.name} full width, the prefix pool: a hit folds "
+        f"the pooled rows and replays the append graph of its miss")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    recs = {}
+    for dtype in ("bfloat16", "float32"):
+        c = cfg.scaled(dtype=dtype)
+        params = build_model(c).init(0, device)
+        recs[f"a_{dtype}"] = pool_replica(torch, c, params, card)
+        if dtype == "float32":
+            recs["b"] = pool_served(torch, c, params, card)
+        del params
+        torch.cuda.empty_cache()
+    recs["wall_s"] = round(time.perf_counter() - t0, 2)
+    log(f"phase 17 wall {recs['wall_s']:.1f} s")
+    return recs
+
+
+# --------------------------------------------------------------------------- #
+# --fp32-gaps: where the fp32 impls of the dense models part
+# --------------------------------------------------------------------------- #
+GAP_ARCHS = ("stablelm-12b", "internvl2-26b", "nemotron-4-15b")
+
+
+def attention_errors(torch, cfg, q, k, v):
+    """One layer's attention on the same fp32 inputs q (1, S, H, D), k, v
+    (1, S, Hkv, D): K2, the torch path `gqa_prefill` takes under "torch"
+    (`online_attention`) and K2's plain version, each against the causal
+    softmax in float64; errors relative to max|reference|, and the largest
+    |q.k| / sqrt(D) (the attention logit)."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.prefill_attention import prefill_attention_plain
+    from repro_torch.models.attention import _repeat_kv, online_attention
+    S, H, D = q.shape[1], q.shape[2], q.shape[3]
+    pos = torch.arange(S, device=q.device)
+    kf, vf = _repeat_kv(k, H), _repeat_kv(v, H)
+    ch = (1 << 30) if cfg.attn_block_full else 256
+    outs = {"k2": ops.prefill_attention(q, k, v, impl="cuda"),
+            "torch": online_attention(q, kf, vf, pos, pos, causal=True,
+                                      q_chunk=ch, kv_chunk=ch),
+            "plain": prefill_attention_plain(q, k, v)}
+    s = torch.einsum("bqhd,bkhd->bhqk", q.double(), kf.double()) \
+        / math.sqrt(D)
+    causal = torch.ones(S, S, dtype=torch.bool, device=q.device).tril()
+    ref = torch.einsum("bhqk,bkhd->bqhd",
+                       s.masked_fill(~causal, float("-inf")).softmax(-1),
+                       vf.double())
+    scale = float(ref.abs().max())
+    errs = {n: float((o.double() - ref).abs().max()) / scale
+            for n, o in outs.items()}
+    errs["k2_vs_torch"] = float((outs["k2"] - outs["torch"]).abs().max()) \
+        / scale
+    errs["max_logit"] = float(s.masked_fill(~causal, 0).abs().max())
+    return errs
+
+
+def locate_fp32_gap(torch, arch, device, card):
+    """fp32 (TF32 off) at full width, at the depth that fits: phase 12
+    (b)'s 150-token prefill under "cuda" and "torch" (internvl2-26b after
+    its 256 seeded patches), recording each layer's output under both and
+    the q, k, v K2 receives under "cuda". Prints, layer by layer, the
+    attention's errors on the same inputs (`attention_errors`) and how far
+    the two runs' hidden states have parted, then the logits' gap: the op
+    that parts them, and how much the layers after it grow the part."""
+    import numpy as np
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ops
+    from repro_torch.models import build_model, transformer
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = fit_depth(torch, get_config(arch).scaled(dtype="float32"))
+    model = build_model(cfg)
+    params = model.init(0, device)
+    fe = (front_maker(torch, cfg, device)(0) if cfg.frontend != "none"
+          else None)
+    prompt = np.random.RandomState(3).randint(0, cfg.vocab_size,
+                                              DENSE_PROMPT)
+    toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
+    hidden, qkv, logits = {"cuda": [], "torch": []}, [], {}
+    block, attn = transformer.block_prefill, ops.prefill_attention
+
+    def rec_block(*args, **kw):
+        h, c = block(*args, **kw)
+        hidden[kw["attention_impl"]].append(h)
+        return h, c
+
+    def rec_attn(q, k, v, **kw):
+        qkv.append((q, k, v))
+        return attn(q, k, v, **kw)
+    transformer.block_prefill, ops.prefill_attention = rec_block, rec_attn
+    try:
+        with torch.no_grad():
+            for impl in ("cuda", "torch"):
+                logits[impl] = model.prefill(params, toks, frontend_embeds=fe,
+                                             attention_impl=impl)[0]
+    finally:
+        transformer.block_prefill, ops.prefill_attention = block, attn
+    with torch.no_grad():
+        layers = [attention_errors(torch, cfg, *t) for t in qkv]
+    parted = [max_err(a, b) / max(1.0, float(b.abs().max()))
+              for a, b in zip(hidden["cuda"], hidden["torch"])]
+    scale = max(1.0, float(logits["torch"].abs().max()))
+    gap = max_err(logits["cuda"], logits["torch"])
+    S = qkv[0][0].shape[1]
+    log(f"  {arch} fp32, {cfg.n_layers} layers, S = {S}, (H, Hkv, D) = "
+        f"({cfg.n_heads}, {cfg.n_kv_heads}, {cfg.head_dim}), norm "
+        f"{cfg.norm}, qk_norm {cfg.qk_norm}: logits gap {gap:.3e} at "
+        f"max|logit| {scale:.3f} ({gap / scale:.2e} relative)")
+    for i, (e, p) in enumerate(zip(layers, parted)):
+        log(f"    layer {i:2d}: attention vs float64 K2 {e['k2']:.2e}, "
+            f"torch {e['torch']:.2e}, plain {e['plain']:.2e}; K2 vs torch "
+            f"{e['k2_vs_torch']:.2e}; max|logit| {e['max_logit']:.2f}; "
+            f"hidden states parted {p:.2e}")
+    rec = {"n_layers": cfg.n_layers, "S": S, "logits_gap": gap,
+           "max_logit": scale,
+           "k2_vs_f64_max": max(e["k2"] for e in layers),
+           "torch_vs_f64_max": max(e["torch"] for e in layers),
+           "k2_vs_torch_median": float(np.median([e["k2_vs_torch"]
+                                                  for e in layers])),
+           "attn_logit_max": max(e["max_logit"] for e in layers),
+           "parted_first": parted[0], "parted_last": parted[-1]}
+    rec["growth"] = rec["parted_last"] / max(rec["k2_vs_torch_median"],
+                                             1e-30)
+    log(f"  [{card}] {arch}: " + json.dumps(rec))
+    del params, model, qkv, hidden, logits
+    torch.cuda.empty_cache()
+    return rec
+
+
 def rotation_sweep(torch, cfg, device, card, values):
     """Phase 5b's run (qwen3-0.6b, bf16, 1 prefiller + 2 decoders through
     the CUDA graphs) once per `rotation_min_chunk` — the shortest chunk a
@@ -2930,6 +3356,14 @@ def main(argv=None) -> int:
     ap.add_argument("--phase16", action="store_true",
                     help="run phases 1-2 and phase 16 (launch and sharding) "
                     "alone and print its records, without the ok line")
+    ap.add_argument("--phase17", action="store_true",
+                    help="run phases 1-2 and phase 17 (the prefix pool) "
+                    "alone and print its records, without the ok line")
+    ap.add_argument("--fp32-gaps", action="store_true",
+                    help="after phases 1-2, locate where the fp32 'cuda' and "
+                    "'torch' impls of stablelm-12b, internvl2-26b and "
+                    "nemotron-4-15b part, layer by layer, and stop (no ok "
+                    "line)")
     ap.add_argument("--rotation-sweep", metavar="N,N,...",
                     help="after phases 1-2, serve phase 5b's trace once for "
                     "each rotation_min_chunk given, print each run's "
@@ -3007,6 +3441,19 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"phase16": launch}))
         return 0
+    if args.fp32_gaps:
+        log("fp32 gaps: the 'cuda' and 'torch' impls layer by layer")
+        gaps = {a: locate_fp32_gap(torch, a, device, card) for a in GAP_ARCHS}
+        log(f"chip_smoke --fp32-gaps wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"fp32_gaps": gaps}))
+        return 0
+    if args.phase17:
+        pool = phase_pool(torch, device, card)
+        log(f"chip_smoke --phase17 wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"phase17": pool}))
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -3034,6 +3481,8 @@ def main(argv=None) -> int:
     log("phase 15 records: " + json.dumps(train))
     launch = phase_launch(torch, card)
     log("phase 16 records: " + json.dumps(launch))
+    pool = phase_pool(torch, device, card)
+    log("phase 17 records: " + json.dumps(pool))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",

@@ -23,15 +23,21 @@ replica, the CUDA graph of that body, replayed on every later call:
   `_get_append`): the slot's own prefix gathered to its ctx bucket by
   device index, the padding masked with kv_lens.
 
-Four cases run the same bodies eagerly, never through a program:
+A prefix-pool hit (`_prefill_from_pool`, the reference's `_get_shared`)
+folds the pooled preamble rows into the slot in place and then runs the
+delta through the append program its miss would run, keyed (pad_to, ctx)
+with ctx the entry's bucket: the same graph on the same inputs.
+
+Three cases run the same bodies eagerly, never through a program:
 F2's exact-length prefill (the bucket would not fit the slot; the
 reference compiles a one-off program there, and a graph used once costs
 more than it saves); every prefill of a model with recurrent layers (RWKV6,
 RG-LRU), which never pads — every position it consumes moves its state —
 and every prefill of an encoder-decoder (padded to its bucket, with the
 logits at the last live position), as the reference's `_prefill_jittable`
-keeps them eager; and the prefix pool's hit (`_prefill_from_pool`). An
-encoder-decoder's decode chunk runs through its program as any other.
+keeps them eager. A pool hit in these cases folds and then runs its append
+eagerly, as its miss would. An encoder-decoder's decode chunk runs through
+its program as any other.
 
 `prefill_mode="reference"` and `decode_step_all_reference` replay the
 reference paths (full-buffer prefix view, host-side sampling, one step
@@ -421,10 +427,12 @@ class ReplicaEngine:
         prefix could occupy (the reference's rule). A vision model's turn-1
         programs take `cfg.frontend_len` patch embeddings, what the server
         sends, and a length whose bucket would not fit beside them is left
-        out (such a prefill runs at its exact length, eagerly). Returns the
-        seconds spent (also accumulated in `self.compile_s`); 0.0 for a
-        recurrent model or an encoder-decoder, whose prefills run
-        eagerly."""
+        out (such a prefill runs at its exact length, eagerly). A prefix
+        pool's hit runs through these append programs, so a pooled replica
+        needs none beyond them (the reference also builds its `_get_shared`
+        programs here). Returns the seconds spent (also accumulated in
+        `self.compile_s`); 0.0 for a recurrent model or an encoder-decoder,
+        whose prefills run eagerly."""
         if self._eager_prefill:
             return 0.0
         n_front = (self.cfg.frontend_len if self.cfg.frontend != "none"
@@ -567,28 +575,37 @@ class ReplicaEngine:
 
     def _prefill_from_pool(self, slot: int, key: str, delta: np.ndarray,
                            prefix_len: int) -> Tuple[np.int32, float]:
-        """Pool-hit turn-1: fold the pooled preamble rows into the slot and
-        run the delta forward against them — zero preamble FLOPs — through
-        the append body, eagerly (the reference's `_get_shared` program is
-        not ported). The entry is pinned across the read; `get` records the
-        observed hit."""
+        """Pool-hit turn-1, the reference's `_get_shared` program: fold the
+        pooled preamble rows into the slot at row 0 — in place, one copy a
+        cache leaf — then run the delta against them — zero preamble FLOPs
+        — through the append program the miss's own append runs, keyed
+        (pad_to, e.ctx), so the two give the same bytes by construction
+        (`warmup_prefill` builds it). Where the miss's append runs eagerly
+        (`_prefill_program` is None), so does the hit's. The fold is
+        enqueued on the current stream, the one a replay launches on. The
+        entry stays pinned until the token's read, the one host sync, so no
+        eviction frees rows a copy still reads; `get` records the observed
+        hit."""
         pool = self.prefix_pool
         e = pool.get(key)
         pool.pin(key)
         try:
             self._kernels_ready()
-            t0 = time.perf_counter()
-            fold_prefill(self.kv.caches, e.caches, slot, 0)
-            self.kv.lengths[slot] = prefix_len
             if self.prefill_mode == "reference":
+                t0 = time.perf_counter()
+                fold_prefill(self.kv.caches, e.caches, slot, 0)
+                self.kv.lengths[slot] = prefix_len
                 fold_dt = self._account_prefill(t0, 0)
                 tok, dt = self._append_reference(slot, delta)
                 self.n_pooled_prefix_tokens += prefix_len
                 return tok, fold_dt + dt
             pad_to = self._prefill_pad(len(delta), self.kv.max_ctx - prefix_len)
-            tok = self._run_prefill(
-                None, self._prefill_host(slot, delta, pad_to, prefix_len),
-                e.ctx)
+            prog = self._prefill_program(len(delta), pad_to,
+                                         e.ctx)  # OFF the clock
+            host = self._prefill_host(slot, delta, pad_to, prefix_len)
+            t0 = time.perf_counter()
+            fold_prefill(self.kv.caches, e.caches, slot, 0)
+            tok = self._run_prefill(prog, host, e.ctx)
             self.kv.lengths[slot] = prefix_len + len(delta)
             dt = self._account_prefill(t0, len(delta))
             self.n_pooled_prefix_tokens += prefix_len

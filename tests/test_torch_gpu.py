@@ -46,7 +46,11 @@ and graphed prefill and appends against the reference path byte for
 byte; whisper-small's decode chunk (its cross-attention and its
 sinusoidal row in the graph) and internvl2-26b's turn-1 prefill with its
 patch embeddings (in the program's static input), graph against eager.
-A kernel launch whose input requires grad raises (no kernel has a
+The prefix pool's hit (a fold of the pooled rows, then the append graph
+its miss replays): for four families, in fp32 the tokens and live rows of
+a graphed hit, an eager hit and a miss byte-identical, in bf16 the tokens
+equal; and on qwen3-0.6b the hit replays that one append graph, with no K2
+launch. A kernel launch whose input requires grad raises (no kernel has a
 backward), and the reduced model's training step launches no kernel."""
 import numpy as np
 import pytest
@@ -1051,3 +1055,94 @@ def test_rank0_of_a_reduced_cell_on_the_card(cuda, shape, monkeypatch):
         assert torch.isfinite(res.to_local().float()).all()
         del out, res
     assert not dist.is_initialized()
+
+
+# --------------------------------------------------------------------------- #
+# the prefix pool's hit through the append program's graph
+# --------------------------------------------------------------------------- #
+POOL_ARCHS = {"qwen3-0.6b": {}, "gemma3-12b": {"window": 256},
+              "deepseek-v2-lite-16b": {}, "rwkv6-3b": {}}
+POOL_PRE = 69  # preamble tokens: ctx bucket 128
+
+
+def _pool_fleet(vocab, deltas=(10, 23, 31)):
+    """One shared preamble and a delta each."""
+    rng = np.random.RandomState(7)
+    pre = rng.randint(0, vocab, size=POOL_PRE).astype(np.int32)
+    return [np.concatenate([pre, rng.randint(0, vocab, size=n)
+                            .astype(np.int32)]) for n in deltas]
+
+
+def _pool_run(cuda, arch, dtype, pool, **kw):
+    """Three conversations sharing one preamble, each kept in its slot.
+    Returns the tokens, each slot's live rows (growing leaves to the slot's
+    length, fixed states whole) and the replica."""
+    from repro_torch.engine.kvcache import growing, leaves
+    cfg = get_reduced(arch).scaled(dtype=dtype, **POOL_ARCHS[arch])
+    eng = ReplicaEngine(cfg, build_model(cfg).init(0, cuda), n_slots=4,
+                        max_ctx=256, attention_impl="cuda",
+                        prefix_pool_tokens=pool, **kw)
+    toks = [int(eng.prefill_conversation(eng.kv.acquire(), c,
+                                         prefix_len=POOL_PRE)[0])
+            for c in _pool_fleet(cfg.vocab_size)]
+    rows = []
+    for s in range(3):
+        n = int(eng.kv.lengths[s])
+        rows += [t[:, :, :n].clone() if growing(p) else t.clone()
+                 for p, t in leaves(eng.kv.export_slot_full(s))]
+    return toks, rows, eng
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", list(POOL_ARCHS))
+def test_pool_hit_graph_equals_miss(cuda, arch, dtype):
+    """A hit folds the pooled rows and replays the append graph its miss
+    replays (rwkv6: both eager): three conversations sharing a preamble
+    give the same tokens graphed with the pool (one miss, two hits), eager
+    with the pool and graphed without it; in fp32 every live row — K/V,
+    MLA's latent rows, RWKV6's states — is byte-identical."""
+    miss = _pool_run(cuda, arch, dtype, 0)
+    graph = _pool_run(cuda, arch, dtype, 4 * POOL_PRE)
+    eager = _pool_run(cuda, arch, dtype, 4 * POOL_PRE, cuda_graphs=False)
+    assert graph[2].prefix_pool.total_hits == 2
+    assert eager[2].prefix_pool.total_hits == 2
+    assert graph[0] == eager[0] == miss[0]
+    if dtype == "float32":
+        for a, b, c in zip(miss[1], graph[1], eager[1]):
+            assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.gpu
+def test_pool_hit_replays_the_append_graph(cuda, monkeypatch):
+    """qwen3-0.6b: the miss replays the turn-1 graph (one K2 launch a
+    layer) and then the append graph; the hit replays that same append
+    graph and nothing else — its launches exactly, no K2 — and builds
+    nothing."""
+    from repro_torch.engine.programs import Program
+    cfg = get_reduced("qwen3-0.6b")
+    eng = ReplicaEngine(cfg, build_model(cfg).init(0, cuda), n_slots=4,
+                        max_ctx=256, attention_impl="cuda",
+                        prefix_pool_tokens=4 * POOL_PRE)
+    replayed = []
+    replay = Program.replay
+
+    def spy(prog, bound):
+        replayed.append(prog)
+        return replay(prog, bound)
+    monkeypatch.setattr(Program, "replay", spy)
+    miss, hit = _pool_fleet(cfg.vocab_size, (10, 10))
+    ops.reset_launch_counts()
+    eng.prefill_conversation(eng.kv.acquire(), miss, prefix_len=POOL_PRE)
+    assert [p.key for p in replayed] == [("prefill", 128, 0),
+                                         ("append", 32, 128)]
+    assert ops.launch_counts()["prefill_attention"] == cfg.n_layers
+    append = replayed[-1]
+    replayed.clear()
+    ops.reset_launch_counts()
+    compile_s = eng.compile_s
+    eng.prefill_conversation(eng.kv.acquire(), hit, prefix_len=POOL_PRE)
+    assert eng.prefix_pool.total_hits == 1
+    assert replayed == [append] and append.launches == {}
+    assert not any(ops.launch_counts().values())
+    assert eng.compile_s == compile_s
