@@ -94,8 +94,9 @@ Phases, each raising on failure:
      12 slots prefilled, a ragged chunk of up to 32 steps, a slot joining
      and an append between chunks, a kill (every slot invalidated, the
      cache kept) and a rejoin whose chunk is captured after it. In fp32
-     with TF32 off (11a qwen3-0.6b on phase 4's weights, 11c rwkv6-3b on
-     phase 6's, 11d recurrentgemma-9b on phase 8's) the tokens and the
+     with TF32 off (11a qwen3-0.6b on phase 4's weights, 11c rwkv6-3b and
+     11d recurrentgemma-9b on the first 8 layers of phase 6's and 8's
+     seeded weights) the tokens and the
      caches must be byte-identical after every chunk, and each prints a
      16-step chunk's wall time per step, eager against graph, the graph's
      traced device time, the launches per replay, each decode bucket's
@@ -217,17 +218,36 @@ Phases, each raising on failure:
      byte-identical off vs on, the killed run's equal to the pool-on
      run's by phase 10's rule, the prefiller hit, K2 28 x each turn-1
      prefill the pool did not serve; TTFET, TBT, prefill tokens/s, hits
-     and compile_s printed. Prints its wall time.
+     and compile_s printed. Prints its wall time;
+ 18. the quantized decode tail, qwen3-0.6b with `kv_cache_dtype="int8"`
+     (rows stored as int8, read as int8 x 0.05), TF32 off: (a) K1 reading
+     the int8 cache itself against its plain version (which dequantizes
+     first) at 16 slots of a 1024 buffer, the 256 bucket with phase 3's
+     lengths, fp32 and bf16 q (tol 2e-5, 2e-2), timed beside its bound
+     (the cache at 1 byte an element) and SDPA on the dequantized rows;
+     (b) fp32 at full width: one prefill and one decode step under each
+     impl, the prefill's rows quantized into the cache, every K1 call
+     handed the int8 cache (recorded through `ops`), logits within
+     LOGIT_TOL, served greedy tokens equal, then the CUDA graphs against
+     the same bodies run eagerly, byte-identical; (c) bf16 served as in
+     5b: one transfer a conversation of exactly 57,344 B x its first
+     input's tokens under strict accounting, K1 = 28 x the graphed decode
+     steps, K2 = 28 x 8, TTFET and TBT printed, the streams equal to 5b's
+     counted (quantization changes tokens; not gated). Prints its wall
+     time. Its time is paid for by 11c's and 11d's fp32 graph checks,
+     cut to 8 layers (`GRAPH_CHECK_LAYERS`), and by keeping (a)'s 64 and
+     1024 buckets and (c)'s graphed decode steps behind `--phase18`.
 
 Every log line starts with the seconds since the script began.
 
-Each model is freed before the next is loaded. Phase 15's, 16's and 17's
-records are log lines of their own. The last four lines of standard output are the script's wall time, the card's name and power
-limit, one JSON object with a record per kernel (K1's and K2's with their
+Each model is freed before the next is loaded. Phase 15's, 16's, 17's and
+18's records are log lines of their own. The last four lines of standard
+output are the script's wall time, the card's name and power limit, one JSON object with a record per kernel (K1's and K2's with their
 phase-10 launches and, under "phase12", "phase13" and "phase14", each
 dense, MoE and frontend model's served launches and, at its heads, the
 bf16 records — internvl2-26b's are nemotron-4-15b's, the same 48 / 8 x
-128), and `{"ok":
+128 — and K1's, under "phase18", its int8 instance's bf16 record at the
+256 bucket and its launches in 18 (c)), and `{"ok":
 true, "device": {...}}`. Without a card, or without the repository around
 it, it exits non-zero before printing any result.
 
@@ -261,6 +281,14 @@ runs phases 1-2 and phase 16 alone and ends with the card line and phase
 
 runs phases 1-2 and phase 17 alone and ends with the card line and phase
 17's records (no ok line).
+
+    python3 chip_smoke.py --phase18
+
+runs phases 1-2, phase 5b's bf16 serve and phase 18 alone, with (a) at
+the 64, 256 and 1024 buckets and (c) followed by the graphed decode step
+(`step_times`) of a 16-slot replica with the int8 cache and one with the
+bf16 cache on the same weights, and ends with the card line and phase 18's
+records (no ok line).
 
     python3 chip_smoke.py --fp32-gaps
 
@@ -432,45 +460,61 @@ def max_err(a, b) -> float:
 # --------------------------------------------------------------------------- #
 # phase 3: kernels against their plain versions
 # --------------------------------------------------------------------------- #
-def check_decode(torch, dtype, B, S_buf, S, H, Hkv, D, lens, seed=0):
+def check_decode(torch, dtype, B, S_buf, S, H, Hkv, D, lens, seed=0,
+                 kv_scale=None):
     """K1 on a cache view trimmed from S_buf to S positions (batch stride of
     the full buffer, as the engine passes it), with the new token as the
-    second branch. Returns the kernel's record (`_record`)."""
+    second branch. With `kv_scale` the cache is int8 (rows of N(0, 0.6)
+    through `quantize_kv`'s rounding), read as int8 x kv_scale, q and the
+    new token in `dtype`; the plain version dequantizes first, the bound
+    counts a cache element as 1 byte, and the yardstick runs on the
+    dequantized rows. Returns the kernel's record (`_record`)."""
     import torch.nn.functional as F
     from repro_torch.kernels import ops
     from repro_torch.kernels.decode_attention import (decode_attention_plain,
+                                                      dequantize,
                                                       flash_decode_attention)
     g = torch.Generator(device="cuda").manual_seed(seed)
     dt = getattr(torch, dtype)
     rnd = lambda *s: (torch.randn(*s, generator=g, device="cuda") * 0.6).to(dt)  # noqa: E731
     q = rnd(B, H, D)
-    kb, vb = rnd(B, S_buf, Hkv, D), rnd(B, S_buf, Hkv, D)
+    if kv_scale is None:
+        kb, vb = rnd(B, S_buf, Hkv, D), rnd(B, S_buf, Hkv, D)
+    else:
+        kb, vb = (torch.clamp(torch.round(
+            torch.randn(B, S_buf, Hkv, D, generator=g, device="cuda") * 0.6
+            / kv_scale), -127, 127).to(torch.int8) for _ in range(2))
     k, v = kb[:, :S], vb[:, :S]
     kn, vn = rnd(B, Hkv, D), rnd(B, Hkv, D)
     lengths = torch.tensor(lens, dtype=torch.int32, device="cuda")
-    got = flash_decode_attention(q, k, v, lengths, kn, vn)
-    want = decode_attention_plain(q, k, v, lengths, kn, vn)
+    got = flash_decode_attention(q, k, v, lengths, kn, vn, kv_scale)
+    want = decode_attention_plain(q, k, v, lengths, kn, vn, kv_scale)
     torch.cuda.synchronize()
     err = max_err(got, want)
     if not err < TOL[dtype]:
-        raise AssertionError(f"K1 {dtype} B={B} S={S} lens={lens}: "
-                             f"max|err| {err} >= {TOL[dtype]}")
+        raise AssertionError(f"K1 {k.dtype} cache, {dtype} B={B} S={S} "
+                             f"lens={lens}: max|err| {err} >= {TOL[dtype]}")
     assert ops.decode_attention(q, k, v, lengths, impl="cuda", k_new=kn,
-                                v_new=vn).shape == q.shape
+                                v_new=vn, kv_scale=kv_scale).shape == q.shape
     live = lengths.clamp(max=S)
     live_keys = int(live.sum()) + B
     isz = torch.finfo(dt).bits // 8
-    nbytes = (2 * B * H * D + 2 * live_keys * Hkv * D) * isz + 4 * B
+    nbytes = (2 * B * H * D + 2 * B * Hkv * D) * isz \
+        + 2 * (live_keys - B) * Hkv * D * k.element_size() + 4 * B
     flops = 4.0 * live_keys * H * D
 
     def kern(q, kb, vb, kn, vn):
         return lambda: flash_decode_attention(q, kb[:, :S], vb[:, :S],
-                                              lengths, kn, vn)
+                                              lengths, kn, vn, kv_scale)
     inputs = (q, kb, vb, kn, vn)
     k_ms, k_dev = cuda_ms(kern(*inputs)), device_ms(kern, inputs, nbytes)
-    p_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lengths, kn, vn))
-    # yardstick: one SDPA call over the same live keys (KV heads expanded
-    # and the new token appended before timing; a boolean length mask)
+    p_ms = cuda_ms(lambda: decode_attention_plain(q, k, v, lengths, kn, vn,
+                                                  kv_scale))
+    # yardstick: one SDPA call over the same live keys (dequantized, KV
+    # heads expanded and the new token appended before timing; a boolean
+    # length mask)
+    if kv_scale is not None:
+        k, v = (dequantize(t, kv_scale, dt) for t in (k, v))
     G = H // Hkv
     kc = torch.cat([k, kn[:, None]], 1).repeat_interleave(G, 2).transpose(1, 2)
     vc = torch.cat([v, vn[:, None]], 1).repeat_interleave(G, 2).transpose(1, 2)
@@ -540,10 +584,10 @@ def check_prefill(torch, dtype, B, S, H, Hkv, D, window, seed=0):
                    bound_ms(nbytes, flops, dtype))
 
 
-def _k1_grid(B, Hkv, S, D) -> str:
+def _k1_grid(B, Hkv, S, D, kv_itemsize=2, G=1) -> str:
     """The blocks K1 launches at this shape, from the wrapper's planner."""
     from repro_torch.kernels import decode_attention as k1
-    n, length = k1.plan_decode_splits(B, Hkv, S, D)
+    n, length = k1.plan_decode_splits(B, Hkv, S, D, kv_itemsize, G)
     return f"grid {n} x {B * Hkv} = {n * B * Hkv} blocks of {length} keys"
 
 
@@ -769,16 +813,41 @@ def phase_rglru(torch, cfg):
 # --------------------------------------------------------------------------- #
 # phase 4: full-width fp32, cuda vs torch attention
 # --------------------------------------------------------------------------- #
-def phase_fp32_parity(torch, cfg, device, card, n_decode=8):
+class recording_k1:
+    """While open, record the cache dtype of every call of K1's wrapper
+    through `ops` (eager calls: a graph's replay calls no wrapper)."""
+
+    def __enter__(self):
+        from repro_torch.kernels import ops
+        self.orig = ops.flash_decode_attention
+        seen = self.seen = []
+        orig = self.orig
+
+        def call(q, k, v, *a, **kw):
+            seen.append(k.dtype)
+            return orig(q, k, v, *a, **kw)
+        ops.flash_decode_attention = call
+        return seen
+
+    def __exit__(self, *exc):
+        from repro_torch.kernels import ops
+        ops.flash_decode_attention = self.orig
+        return False
+
+
+def impl_parity(torch, cfg, params, device, n_decode=8):
+    """One 300-token prefill under each impl (K2 / torch), its rows put
+    into a cache 64 rows longer as the fold puts them (quantized for an
+    int8 cache), one decode step under each impl (K1, handed the cache in
+    its own dtype, recorded by `recording_k1` / torch), the logits within
+    LOGIT_TOL and one K1 and one K2 launch a layer; then the greedy tokens
+    of a replica under each impl, equal. Returns the tokens."""
     import numpy as np
     from repro_torch.engine import ReplicaEngine
     from repro_torch.kernels import ops
     from repro_torch.models import build_model
-    cfg = cfg.scaled(dtype="float32")
-    log(f"phase 4: {cfg.name} full width fp32 ({cfg.n_layers} layers), "
-        f"attention_impl cuda vs torch")
+    from repro_torch.models.attention import quantize_kv
     model = build_model(cfg)
-    params = model.init(0, device)
     prompt = np.random.RandomState(0).randint(0, cfg.vocab_size, 300)
     toks = torch.as_tensor(prompt, dtype=torch.int32, device=device)[None]
     logits, caches = {}, {}
@@ -789,20 +858,23 @@ def phase_fp32_parity(torch, cfg, device, card, n_decode=8):
     err_p = max_err(logits["cuda"], logits["torch"])
     pos = torch.tensor([len(prompt)], dtype=torch.int32, device=device)
     nxt = logits["torch"][:, :cfg.vocab_size].argmax(-1).to(torch.int32)
-    cache = {k: {kk: {n: torch.nn.functional.pad(
-        t, (0, 0, 0, 0, 0, 64)) for n, t in vv.items()}
+    cache = {k: {kk: {n: quantize_kv(torch.nn.functional.pad(
+        t, (0, 0, 0, 0, 0, 64)), cfg) for n, t in vv.items()}
         for kk, vv in v.items()} for k, v in caches["torch"].items()}
-    dl = {impl: model.decode_step(params, nxt, cache, pos, kv_lens=pos,
-                                  attention_impl=impl)[0]
-          for impl in ("cuda", "torch")}
+    with recording_k1() as seen:
+        dl = {impl: model.decode_step(params, nxt, cache, pos, kv_lens=pos,
+                                      attention_impl=impl)[0]
+              for impl in ("cuda", "torch")}
     counts = ops.launch_counts()
     want = {"decode_attention": cfg.n_layers,
             "prefill_attention": cfg.n_layers, "wkv6": 0, "rglru": 0}
-    if counts != want:
+    if counts != want or seen != [cfg.kv_torch_dtype] * cfg.n_layers:
         raise AssertionError(f"one prefill and one decode step launched "
-                             f"{counts}, not {want}")
+                             f"{counts}, not {want}; K1 was handed "
+                             f"{set(seen)} caches")
     err_d = max_err(dl["cuda"], dl["torch"])
-    log(f"  launches of one prefill + one decode step {counts}")
+    log(f"  launches of one prefill + one decode step {counts}; each K1 "
+        f"call handed the {cfg.kv_torch_dtype} cache itself")
     log(f"  logits max|err| prefill {err_p:.3e}, decode {err_d:.3e} "
         f"(tol {LOGIT_TOL})")
     if not (err_p < LOGIT_TOL and err_d < LOGIT_TOL):
@@ -822,7 +894,16 @@ def phase_fp32_parity(torch, cfg, device, card, n_decode=8):
     log(f"  greedy tokens torch {streams['torch']}")
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("greedy tokens differ between attention impls")
-    del caches, cache
+    return streams["cuda"]
+
+
+def phase_fp32_parity(torch, cfg, device, card):
+    from repro_torch.models import build_model
+    cfg = cfg.scaled(dtype="float32")
+    log(f"phase 4: {cfg.name} full width fp32 ({cfg.n_layers} layers), "
+        f"attention_impl cuda vs torch")
+    params = build_model(cfg).init(0, device)
+    impl_parity(torch, cfg, params, device)
     phase_graphs(torch, cfg, params, card, "11a")
     phase_prefill_reference(torch, cfg, params)
     del params
@@ -1086,10 +1167,9 @@ def phase_rwkv_fp32_parity(torch, cfg, device, card, n_decode=8):
     log(f"  greedy tokens torch {streams['torch']}")
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("rwkv6 greedy tokens differ between impls")
-    del caches, eng
-    phase_graphs(torch, cfg, params, card, "11c")
-    del params
+    del caches, eng, params
     torch.cuda.empty_cache()
+    graphs_at_depth(torch, cfg, device, card, "11c")
 
 
 def phase_rwkv_serve(torch, cfg, device, card):
@@ -1174,9 +1254,9 @@ def phase_rg_fp32_parity(torch, cfg, device, card, n_decode=8):
     if streams["cuda"] != streams["torch"]:
         raise AssertionError("recurrentgemma greedy tokens differ between "
                              "impls")
-    phase_graphs(torch, cfg, params, card, "11d")
     del params
     torch.cuda.empty_cache()
+    graphs_at_depth(torch, cfg, device, card, "11d")
 
 
 def phase_rg_serve(torch, cfg, device, card):
@@ -1205,10 +1285,27 @@ GRAPH_SLOTS = 16
 # repetition of its pattern (12 before) and internvl2's 16 layers (32, all
 # that fit, before) pay for phase 17
 GRAPH_CHECK_LAYERS = {"gemma3-12b": 6, "deepseek-v2-lite-16b": 8,
-                      "internvl2-26b": 16}
+                      "internvl2-26b": 16,
+                      # 11c and 11d (32 and 38 layers before) pay for
+                      # phase 18: rwkv6's first 8 layers, and
+                      # recurrentgemma's two repetitions and its two "rem"
+                      # layers
+                      "rwkv6-3b": 8, "recurrentgemma-9b": 8}
 # phase 12 (b)'s fp32 parity of the two deepest dense models at half depth
 # (of 40 and 32 layers): the time it saves pays for phase 16
 PARITY_LAYERS = {"stablelm-12b": 20, "nemotron-4-15b": 16}
+
+
+def graphs_at_depth(torch, cfg, device, card, tag):
+    """`phase_graphs` (fp32 gate, then `step_times`) on fresh seeded
+    weights cut to GRAPH_CHECK_LAYERS[cfg.name] layers: the first layers of
+    the full model's own (each leaf is seeded by its name)."""
+    from repro_torch.models import build_model
+    cfg = cut_depth(cfg, GRAPH_CHECK_LAYERS[cfg.name], tag)
+    params = build_model(cfg).init(0, device)
+    phase_graphs(torch, cfg, params, card, tag)
+    del params
+    torch.cuda.empty_cache()
 
 
 def cache_copy(eng):
@@ -1847,21 +1944,6 @@ def cut_depth(cfg, n_layers: int, tag: str):
     return cfg.scaled(n_layers=n_layers)
 
 
-def dense_graphs(torch, cfg, device, card):
-    """(d) phase 11's check in fp32 (TF32 off) on fresh weights: the CUDA
-    graphs against the same bodies run eagerly, tokens equal and caches
-    byte-identical after every chunk, at GRAPH_CHECK_LAYERS[arch] layers
-    (printed): one repetition of its pattern, which pays for phases 15
-    and 17."""
-    from repro_torch.models import build_model
-    cfg = cut_depth(cfg.scaled(dtype="float32"),
-                    GRAPH_CHECK_LAYERS[cfg.name], "12 (d)")
-    params = build_model(cfg).init(0, device)
-    phase_graphs(torch, cfg, params, card, "12 (d)")
-    del params
-    torch.cuda.empty_cache()
-
-
 def dense_serve(torch, cfg, device, card):
     """(c) full width and depth in bf16 under ConServe, through the CUDA
     graphs, strict accounting (`serve_and_count`): 8 of 8 conversations,
@@ -1922,7 +2004,8 @@ def phase_dense(torch, device, card):
             if arch in PARITY_LAYERS else cfg, device, card)
         gc.collect()
         if arch == "gemma3-12b":  # the pattern that differs
-            dense_graphs(torch, cfg, device, card)
+            graphs_at_depth(torch, cfg.scaled(dtype="float32"), device,
+                            card, "12 (d)")
             gc.collect()
         launches[arch] = dense_serve(torch, cfg, device, card)
         gc.collect()
@@ -2172,7 +2255,6 @@ def moe_serve(torch, cfg, device, card, tag):
     K1-K4 at 0. llama4-scout (global GQA at G = 5): K1's launches the
     layers x the graphed decode steps, K2's the layers x 8 turn-1
     prefills."""
-    from repro_torch.launch.serve import engine_trace
     from repro_torch.models import build_model
     n_conv = 8
     cache_layer = 3 * GRAPH_SLOTS * 1024 * (
@@ -2189,6 +2271,20 @@ def moe_serve(torch, cfg, device, card, tag):
             torch, cfg, params, card, path, f"({tag}) ",
             absent=tuple(k for k in ALL_KERNELS if k not in path),
             n_conversations=n_conv)
+    k1, k2 = check_served(cfg, run, tally, n_conv, L)
+    del params, run
+    torch.cuda.empty_cache()
+    return {"decode_attention": k1, "prefill_attention": k2,
+            "layers": cfg.n_layers, "decode_steps": tally["decode"]}
+
+
+def check_served(cfg, run, tally, n_conv, L):
+    """A ConServe run of `n_conv` conversations of the engine trace under
+    strict accounting: one transfer a conversation of kv_bytes_per_token
+    x its first input's tokens, K1 = `L` layers x the graphed decode
+    steps (`tally` of `counting_replays`), K2 = L x n_conv turn-1
+    prefills. Returns (K1, K2) launches."""
+    from repro_torch.launch.serve import engine_trace
     srv = run["srv"]
     tokens = sum(c.first_input_len for c in engine_trace(n_conv))
     per_tok = cfg.kv_bytes_per_token()
@@ -2207,10 +2303,7 @@ def moe_serve(torch, cfg, device, card, tag):
         raise AssertionError(f"K1 {k1} / K2 {k2} launches, not {L} layers x "
                              f"{tally['decode']} graphed decode steps / "
                              f"{L} x {n_conv} turn-1 prefills")
-    del params, run, srv
-    torch.cuda.empty_cache()
-    return {"decode_attention": k1, "prefill_attention": k2,
-            "layers": cfg.n_layers, "decode_steps": tally["decode"]}
+    return k1, k2
 
 
 def moe_records(recs, launches):
@@ -3209,6 +3302,107 @@ def phase_pool(torch, device, card):
 
 
 # --------------------------------------------------------------------------- #
+# phase 18: the quantized decode tail (an int8 KV cache)
+# --------------------------------------------------------------------------- #
+INT8 = {"kv_cache_dtype": "int8"}
+
+
+def int8_fp32_parity(torch, cfg, device, card):
+    """(b) phase 4's `impl_parity` with the int8 cache (every K1 call
+    handed the int8 rows), then the CUDA graphs against the same bodies
+    run eagerly, byte-identical (gate)."""
+    from repro_torch.models import build_model
+    log(f"  (b) {cfg.name} full width fp32 ({cfg.n_layers} layers), int8 "
+        f"cache, attention_impl cuda vs torch")
+    params = build_model(cfg).init(0, device)
+    tokens = impl_parity(torch, cfg, params, device)
+    phase_graphs(torch, cfg, params, card, "18 (b)", times=False)
+    del params
+    torch.cuda.empty_cache()
+    return {"tokens": tokens}
+
+
+def int8_serve(torch, cfg, device, card, bf16_streams, steps=False):
+    """(c) bf16 with an int8 cache under ConServe on phase 5b's trace
+    (`serve_and_count`): 8 of 8 conversations, one transfer each of
+    kv_bytes_per_token (57,344 B) x its first input's tokens, K1 = layers
+    x the graphed decode steps, K2 = layers x 8 turn-1 prefills; the
+    streams equal to 5b's counted, not gated (quantization changes
+    tokens). With `steps`, `step_times` of a 16-slot replica with the int8
+    cache and of one with the bf16 cache, on the same weights."""
+    from repro_torch.engine import ReplicaEngine
+    from repro_torch.models import build_model
+    n_conv, L = 8, cfg.n_layers
+    log(f"  (c) {cfg.name} full width {cfg.dtype}, int8 cache, "
+        f"EngineServer + ConServe, strict accounting")
+    params = build_model(cfg).init(0, device)
+    with counting_replays() as tally:
+        launches, run = serve_and_count(
+            torch, cfg, params, card, PATH_KERNELS, "(c) ",
+            absent=("wkv6", "rglru"), n_conversations=n_conv)
+    if cfg.kv_bytes_per_token() != 57_344:
+        raise AssertionError(f"{cfg.kv_bytes_per_token()} KV bytes a token "
+                             "with an int8 cache, not 57,344")
+    k1, k2 = check_served(cfg, run, tally, n_conv, L)
+    n_eq, n_all = count_equal(bf16_streams, run["streams"])
+    log(f"  {n_eq} of {n_all} streams equal to 5b's (bf16 cache; "
+        f"quantization changes tokens, not gated)")
+    s = run["summary"]
+    rec = {"decode_attention": k1, "prefill_attention": k2,
+           "decode_steps": tally["decode"], "transfer_bytes":
+           run["srv"].transfer_bytes, "streams_equal_to_5b": [n_eq, n_all],
+           "ttfet_p95_s": s["ttfet_p95"],
+           "last_tbt_gmean_ms": s["last_tbt_gmean"] * 1e3,
+           "last_tbt_p95_ms": s["last_tbt_p95"] * 1e3}
+    del run
+    if steps:
+        for c, label in ((cfg, "int8 cache"),
+                         (cfg.scaled(kv_cache_dtype=""), "bf16 cache")):
+            log(f"  (c) the graphed decode step, {label}:")
+            eng = ReplicaEngine(c, params, n_slots=GRAPH_SLOTS, max_ctx=1024,
+                                attention_impl="cuda")
+            rec[f"step_{label.split()[0]}"] = step_times(torch, eng, card)
+            del eng
+            torch.cuda.empty_cache()
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_int8(torch, cfg, device, card, bf16_streams, full=False):
+    """Phase 18 on qwen3-0.6b with `kv_cache_dtype="int8"`: (a) K1 reading
+    the int8 cache against its plain version at phase 3's cases (the 256
+    bucket; all three with `full`), (b) `int8_fp32_parity`, (c)
+    `int8_serve` (with the graphed decode steps when `full`). Returns (the
+    bf16 record at the 256 bucket, the records)."""
+    t0 = time.perf_counter()
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    scale = cfg.kv_quant_scale
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"phase 18: {cfg.name} with an int8 KV cache (int8 x {scale}): K1 "
+        f"reads the int8 rows (TF32 off; fp32 tol 2e-5, bf16 tol 2e-2)")
+    recs, k1 = {}, None
+    for dtype in ("float32", "bfloat16"):
+        for S in ((64, 256, 1024) if full else (256,)):
+            r = check_decode(torch, dtype, 16, 1024, S, H, Hkv, D,
+                             decode_lengths(S), kv_scale=scale)
+            log(f"  (a) K1 int8 {dtype:8s} B=16 S={S:4d} "
+                f"{_k1_grid(16, Hkv, S, D, 1, H // Hkv)}: max|err| "
+                f"{r['max_abs_err']:.3e}  {_times(r)}")
+            recs[f"a_{dtype}_{S}"] = r
+            if dtype == "bfloat16" and S == 256:
+                k1 = r
+    recs["b"] = int8_fp32_parity(torch, cfg.scaled(dtype="float32", **INT8),
+                                 device, card)
+    recs["c"] = int8_serve(torch, cfg.scaled(**INT8), device, card,
+                           bf16_streams, steps=full)
+    recs["wall_s"] = round(time.perf_counter() - t0, 2)
+    log(f"phase 18 wall {recs['wall_s']:.1f} s")
+    return k1, recs
+
+
+# --------------------------------------------------------------------------- #
 # --fp32-gaps: where the fp32 impls of the dense models part
 # --------------------------------------------------------------------------- #
 GAP_ARCHS = ("stablelm-12b", "internvl2-26b", "nemotron-4-15b")
@@ -3359,6 +3553,11 @@ def main(argv=None) -> int:
     ap.add_argument("--phase17", action="store_true",
                     help="run phases 1-2 and phase 17 (the prefix pool) "
                     "alone and print its records, without the ok line")
+    ap.add_argument("--phase18", action="store_true",
+                    help="run phases 1-2, phase 5b's bf16 run and phase 18 "
+                    "(the int8 KV cache) alone, with K1's int8 instance at "
+                    "all three buckets and the graphed decode steps, and "
+                    "print its records, without the ok line")
     ap.add_argument("--fp32-gaps", action="store_true",
                     help="after phases 1-2, locate where the fp32 'cuda' and "
                     "'torch' impls of stablelm-12b, internvl2-26b and "
@@ -3454,6 +3653,19 @@ def main(argv=None) -> int:
         print(card)
         print(json.dumps({"phase17": pool}))
         return 0
+    if args.phase18:
+        from repro_torch.models import build_model
+        params = build_model(cfg).init(0, device)
+        _, bf16 = serve_and_count(torch, cfg, params, card, PATH_KERNELS,
+                                  "(5b, bf16 cache) ")
+        del params
+        torch.cuda.empty_cache()
+        _, int8 = phase_int8(torch, cfg, device, card, bf16["streams"],
+                             full=True)
+        log(f"chip_smoke --phase18 wall {time.perf_counter() - t_start:.1f} s")
+        print(card)
+        print(json.dumps({"phase18": int8}))
+        return 0
     recs = phase_kernels(torch, cfg)
     recs.update(phase_wkv6(torch, rcfg))
     recs.update(phase_rglru(torch, gcfg))
@@ -3483,6 +3695,9 @@ def main(argv=None) -> int:
     log("phase 16 records: " + json.dumps(launch))
     pool = phase_pool(torch, device, card)
     log("phase 17 records: " + json.dumps(pool))
+    k1_int8, int8 = phase_int8(torch, cfg, device, card,
+                               conserve_run["streams"])
+    log("phase 18 records: " + json.dumps(int8))
 
     csrc = "src/repro_torch/kernels/csrc/"
     replaces = {"decode_attention": "src/repro/kernels/decode_attention.py:69",
@@ -3500,6 +3715,11 @@ def main(argv=None) -> int:
         k["phase12"] = dense[k["name"]]  # and at each dense model's heads
         k["phase13"] = moe[k["name"]]  # and at the MoE models' (G = 5)
         k["phase14"] = front[k["name"]]  # whisper's (G = 1), internvl2's
+    # K1 reading an int8 cache: its bf16 record at the 256 bucket and its
+    # served launches
+    kernels[0]["phase18"] = dict(
+        k1_int8, launches=int8["c"]["decode_attention"],
+        decode_steps=int8["c"]["decode_steps"])
     log(f"chip_smoke wall {time.perf_counter() - t_start:.1f} s")
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -48,6 +48,16 @@ outside the array (torch raises or writes out of bounds), and
 slice silently writes less). So `fold_decode_step` clamps the row it touches
 and writes back the old row for slots that are not live, and `fold_prefill`
 refuses a write that does not fit.
+
+A quantized cache (`kv_cache_dtype="int8"`) holds every growing attention
+row as `quantize_kv` gives it. A decode step's rows come quantized from the
+model; a prefill's come in the model's dtype, and the prefill folds
+(`fold_prefill`, `fold_prefill_at`, hence `write_prefill`) quantize them
+on the way in, given the model's config. Rows that are already int8 — a
+pooled prefix, an imported package, a saved slot put back — are copied
+like for like. The reference's folds cast the prefill's float rows to int8
+without the scale or rounding (ROADMAP queue 3, F23). `nbytes_of` counts
+the bytes as they are, so an int8 transfer is half a bf16 one.
 """
 from __future__ import annotations
 
@@ -57,7 +67,8 @@ from typing import Any, Callable, Dict, Iterator, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from repro_torch.models.config import ATTN_LOCAL
+from repro_torch.models.attention import quantize_kv
+from repro_torch.models.config import ATTN_LOCAL, ModelConfig
 from repro_torch.models.model import GROWING_KEYS, Model
 
 
@@ -108,6 +119,21 @@ def cross(path: Tuple[str, ...]) -> bool:
     return path[0] == "cross"
 
 
+def stored(path: Tuple[str, ...], leaf: torch.Tensor, new: torch.Tensor,
+           cfg: Optional[ModelConfig]) -> torch.Tensor:
+    """`new` rows as `leaf` holds them: float rows bound for a quantized
+    (integer) growing leaf go through `quantize_kv` (F23); anything else
+    is cast, a like-for-like copy included."""
+    if growing(path) and new.dtype != leaf.dtype and \
+            not leaf.dtype.is_floating_point:
+        if cfg is None:
+            raise ValueError(f"{'/'.join(path)}: folding {new.dtype} rows "
+                             f"into a {leaf.dtype} cache needs the model's "
+                             "config to quantize them")
+        return quantize_kv(new, cfg)
+    return new.to(leaf.dtype)
+
+
 def _slot_mask(mask: torch.Tensor, ndim: int) -> torch.Tensor:
     """(n_slots,) -> broadcastable against a (G, n_slots, ...) leaf."""
     return mask.reshape((1, -1) + (1,) * (ndim - 2))
@@ -130,7 +156,8 @@ def fold_decode_step(caches, updates, lens: torch.Tensor,
 
     lens (n_slots,) int and mask (n_slots,) bool are device tensors; no host
     sync happens here. An encoder-decoder's "cross" leaves are no update
-    and stay as they are (F13)."""
+    and stay as they are (F13). A quantized leaf takes rows the model
+    already quantized, never floats."""
     ar = torch.arange(mask.shape[0], device=mask.device)
     for path, leaf in leaves(caches):
         if cross(path):
@@ -141,6 +168,10 @@ def fold_decode_step(caches, updates, lens: torch.Tensor,
             leaf.copy_(torch.where(_slot_mask(mask, leaf.dim()),
                                    up.to(leaf.dtype), leaf))
             continue
+        if not leaf.dtype.is_floating_point and up.dtype != leaf.dtype:
+            raise ValueError(f"{'/'.join(path)}: a decode step's {up.dtype} "
+                             f"rows for a {leaf.dtype} cache: the model "
+                             "quantizes them (`quantize_kv`)")
         pos = lens.clamp(max=leaf.shape[2] - 1).long()
         old = leaf[:, ar, pos]  # (G, B, Hkv, hd); MLA's (G, B, rank)
         leaf[:, ar, pos] = torch.where(_slot_mask(mask, old.dim()),
@@ -177,20 +208,23 @@ def gather_slot_prefix(caches, slot: torch.Tensor, ctx: int):
 
 @torch.no_grad()
 def fold_prefill_at(caches, new_caches, slot: torch.Tensor,
-                    offset: torch.Tensor) -> None:
+                    offset: torch.Tensor,
+                    cfg: Optional[ModelConfig] = None) -> None:
     """`fold_prefill` with the slot and the offset as device tensors ((1,)
     int): the same bytes written, by `index_copy_` / `index_put_` on the
     slot axis, so a CUDA graph can write any slot at any offset and the host
     reads nothing. It cannot refuse a region that runs off the buffer
     without a host read, so the caller checks that before (the replica's
     `_check_prefill_room` and `_prefill_pad`). An append's result holds no
-    "cross" leaves, and they are left as they are."""
+    "cross" leaves, and they are left as they are. `cfg` quantizes float
+    rows for a quantized cache (`stored`)."""
     slot = slot.long()
     for path, leaf in leaves(caches):
         if cross(path) and "cross" not in new_caches:
             continue
         leaf = grouped(path, leaf)
-        new = grouped(path, leaf_at(new_caches, path)).to(leaf.dtype)
+        new = stored(path, leaf, grouped(path, leaf_at(new_caches, path)),
+                     cfg)
         if not growing(path):
             leaf.index_copy_(1, slot, new)
             continue
@@ -199,7 +233,8 @@ def fold_prefill_at(caches, new_caches, slot: torch.Tensor,
 
 
 @torch.no_grad()
-def fold_prefill(caches, new_caches, slot: int, offset: int) -> None:
+def fold_prefill(caches, new_caches, slot: int, offset: int,
+                 cfg: Optional[ModelConfig] = None) -> None:
     """Write a (batch=1) prefill result into slot `slot`, in place: growing
     rows at [offset, offset+S), fixed states replacing the slot's row. The
     written region may extend past the slot's live length (bucketed token
@@ -207,21 +242,22 @@ def fold_prefill(caches, new_caches, slot: int, offset: int) -> None:
     buffer raises — it is never clamped or cut (the replica's
     `_check_prefill_room` and `_prefill_pad` keep the serve path inside).
     An append's result holds no "cross" leaves, and they are left as they
-    are."""
+    are. `cfg` quantizes float rows for a quantized cache (`stored`)."""
     for path, leaf in leaves(caches):
         if cross(path) and "cross" not in new_caches:
             continue
         leaf = grouped(path, leaf)
-        new = grouped(path, leaf_at(new_caches, path))
+        new = stored(path, leaf, grouped(path, leaf_at(new_caches, path)),
+                     cfg)
         if not growing(path):
-            leaf[:, slot:slot + 1] = new.to(leaf.dtype)
+            leaf[:, slot:slot + 1] = new
             continue
         S, L = new.shape[2], leaf.shape[2]
         if offset < 0 or offset + S > L:
             raise RuntimeError(
                 f"fold_prefill: rows [{offset}, {offset + S}) of slot {slot} "
                 f"do not fit a buffer of {L} positions")
-        leaf[:, slot:slot + 1, offset:offset + S] = new.to(leaf.dtype)
+        leaf[:, slot:slot + 1, offset:offset + S] = new
 
 
 class SlotKVCache:
@@ -293,7 +329,7 @@ class SlotKVCache:
         [current length, ...). `length` = the slot's total live length
         afterwards."""
         prev = int(self.lengths[slot])
-        fold_prefill(self.caches, new_caches, slot, prev)
+        fold_prefill(self.caches, new_caches, slot, prev, self.cfg)
         self.lengths[slot] = length
 
     def append_step(self, updates, emitted_mask: np.ndarray):
@@ -320,7 +356,7 @@ class SlotKVCache:
         grown KV to the decoder's occupied slot; the JAX package's
         `import_slot` writes it at the slot's current length instead (F11),
         which misplaces every row the remote turn returns."""
-        fold_prefill(self.caches, package["caches"], slot, 0)
+        fold_prefill(self.caches, package["caches"], slot, 0, self.cfg)
         self.lengths[slot] = package["length"]
 
     def export_slot_full(self, slot: int):

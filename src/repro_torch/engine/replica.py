@@ -345,7 +345,7 @@ class ReplicaEngine:
         logits, new = self.model.prefill(
             self.params, ins[3:][None], logits_at=true_len - 1,
             frontend_embeds=fe, attention_impl=self.attention_impl, **kw)
-        fold_prefill_at(self.kv.caches, new, slot, prev)
+        fold_prefill_at(self.kv.caches, new, slot, prev, self.cfg)
         tok.copy_(self._argmax(logits))
 
     def _make_prefill(self, pad_to: int, ctx: Optional[int],
@@ -593,7 +593,7 @@ class ReplicaEngine:
             self._kernels_ready()
             if self.prefill_mode == "reference":
                 t0 = time.perf_counter()
-                fold_prefill(self.kv.caches, e.caches, slot, 0)
+                fold_prefill(self.kv.caches, e.caches, slot, 0, self.cfg)
                 self.kv.lengths[slot] = prefix_len
                 fold_dt = self._account_prefill(t0, 0)
                 tok, dt = self._append_reference(slot, delta)
@@ -604,7 +604,7 @@ class ReplicaEngine:
                                          e.ctx)  # OFF the clock
             host = self._prefill_host(slot, delta, pad_to, prefix_len)
             t0 = time.perf_counter()
-            fold_prefill(self.kv.caches, e.caches, slot, 0)
+            fold_prefill(self.kv.caches, e.caches, slot, 0, self.cfg)
             tok = self._run_prefill(prog, host, e.ctx)
             self.kv.lengths[slot] = prefix_len + len(delta)
             dt = self._account_prefill(t0, len(delta))

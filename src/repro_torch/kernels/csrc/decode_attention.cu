@@ -52,6 +52,16 @@
 //   otherwise it writes (m, l, unnormalised acc) in fp32 scratch that the
 //   wrapper allocates, and a second kernel from the same entry point merges
 //   the splits.
+// - An int8 cache (the quantized decode tail, `kv_cache_dtype="int8"`,
+//   dequantized as int8 x kv_scale): the kernel reads the int8 rows
+//   themselves, half the bytes of bf16, a 16-byte piece then carrying 16
+//   values (8 or 4 when G >= 5, to bound the registers), and widens them to
+//   float in registers. The scale is applied once to q, before the dot
+//   products, and once to each block's weighted sum, never per key. q, the
+//   new token and the output stay in the model's dtype; the new token is
+//   attended in full precision, as one more key after the loop, its K and V
+//   divided by kv_scale so that the scaled q and the final scaling leave it
+//   as it is. Instantiated at D = 128.
 // Not done yet: a persistent grid that walks (sequence, KV head, split)
 // work items, which would also fold the combine into the same launch.
 #include <cuda_bf16.h>
@@ -79,6 +89,10 @@ template <>
 struct Word<8> {
   using type = uint2;
 };
+template <>
+struct Word<4> {
+  using type = unsigned int;
+};
 
 template <typename T, int VEC>
 __device__ __forceinline__ void widen(const typename Word<VEC * sizeof(T)>::type& w,
@@ -87,6 +101,10 @@ __device__ __forceinline__ void widen(const typename Word<VEC * sizeof(T)>::type
     const float* p = reinterpret_cast<const float*>(&w);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) f[e] = p[e];
+  } else if constexpr (sizeof(T) == 1) {
+    const int8_t* p = reinterpret_cast<const int8_t*>(&w);
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) f[e] = (float)p[e];
   } else {
     const __nv_bfloat162* p = reinterpret_cast<const __nv_bfloat162*>(&w);
 #pragma unroll
@@ -99,6 +117,15 @@ __device__ __forceinline__ void widen(const typename Word<VEC * sizeof(T)>::type
 }
 
 template <typename T>
+__device__ __forceinline__ float to_float(T x);
+template <>
+__device__ __forceinline__ float to_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
@@ -108,12 +135,16 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
 }
 
 constexpr int pow2_at_least(int x) { return x <= 1 ? 1 : 2 * pow2_at_least((x + 1) / 2); }
+constexpr int pow2_at_most(int x) { return x <= 1 ? 1 : 2 * pow2_at_most(x / 2); }
 
-template <typename T, int D, int G>
+// KT: the cache's element type
+template <typename KT, int D, int G>
 struct DecodeShape {
-  // elements per piece: one 16-byte load, or 8 bytes of bf16 when G = 16
-  static constexpr int VEC = (16 / (int)sizeof(T)) < 64 / G
-                                 ? 16 / (int)sizeof(T) : 64 / G;
+  // elements per piece: one 16-byte load, or fewer elements when a lane's
+  // G x VEC would not fit its registers (8 bytes of bf16 at G = 16; 8 or 4
+  // bytes of int8 at G >= 5)
+  static constexpr int VEC = (16 / (int)sizeof(KT)) < pow2_at_most(64 / G)
+                                 ? 16 / (int)sizeof(KT) : pow2_at_most(64 / G);
   static constexpr int P = D / VEC;     // pieces per row
   static constexpr int LPR = P >= 32 ? 32 : pow2_at_least(P);  // lanes a row
   static constexpr int NV = (P + LPR - 1) / LPR;  // pieces per lane
@@ -125,21 +156,24 @@ struct DecodeShape {
   static_assert(D % VEC == 0 && LPR <= 32 && 32 % LPR == 0, "row split");
 };
 
-// One block per (split, KV head, sequence).
-template <typename T, int D, int G>
+// One block per (split, KV head, sequence). T: q, the new token and the
+// output; KT: the cache, T itself or int8 (kQuant). scale_log2 holds
+// kv_scale too when kQuant.
+template <typename T, typename KT, int D, int G>
 __global__ void __launch_bounds__(kThreads)
-decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ k_new,
+decode_split_kernel(const T* __restrict__ q, const KT* __restrict__ k,
+                    const KT* __restrict__ v, const T* __restrict__ k_new,
                     const T* __restrict__ v_new,
                     const int* __restrict__ lengths, T* __restrict__ out,
                     float* __restrict__ part_ml, float* __restrict__ part_acc,
                     int S, int Hkv, long long kv_stride_b, int split_len,
-                    float scale_log2) {
-  using Sh = DecodeShape<T, D, G>;
+                    float scale_log2, float kv_scale) {
+  using Sh = DecodeShape<KT, D, G>;
   constexpr int VEC = Sh::VEC, P = Sh::P, LPR = Sh::LPR, NV = Sh::NV,
                 RPW = Sh::RPW, E = Sh::E, U = Sh::UNROLL;
   constexpr bool kFull = NV * LPR == P;  // no lane idles in a row's load
-  using W = typename Word<VEC * sizeof(T)>::type;
+  constexpr bool kQuant = sizeof(KT) == 1;
+  using W = typename Word<VEC * sizeof(KT)>::type;
   const int split = blockIdx.x;
   const int n = blockIdx.y;  // KV head
   const int b = blockIdx.z;  // sequence
@@ -160,6 +194,8 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int n_keys = len + (k_new != nullptr ? 1 : 0);
   const int j0 = split * split_len;
   const int j1 = min(j0 + split_len, n_keys);
+  // the loop's keys: with an int8 cache the new token comes after it
+  const int jl = kQuant ? min(j1, len) : j1;
   const bool direct = gridDim.x == 1;
   const long long head = (long long)b * Hkv + n;  // (b, n) in (B, Hkv)
   const long long BH = (long long)gridDim.z * Hkv * G;
@@ -181,10 +217,16 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int i = 0; i < NV; ++i) {
       float f[VEC];
-      W w = W{};
-      if (has[i])
-        w = *reinterpret_cast<const W*>(q + (head * G + g) * D + col[i]);
-      widen<T, VEC>(w, f);
+      if constexpr (kQuant) {  // VEC elements of T: once a block
+        const T* qp = q + (head * G + g) * D + col[i];
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) f[e] = has[i] ? to_float<T>(qp[e]) : 0.f;
+      } else {
+        W w = W{};
+        if (has[i])
+          w = *reinterpret_cast<const W*>(q + (head * G + g) * D + col[i]);
+        widen<T, VEC>(w, f);
+      }
 #pragma unroll
       for (int e = 0; e < VEC; ++e) qr[g][i * VEC + e] = f[e] * scale_log2;
     }
@@ -199,17 +241,17 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   const long long row = (long long)Hkv * D;  // stride between positions
-  const T* kb = k + b * kv_stride_b + (long long)n * D;
-  const T* vb = v + b * kv_stride_b + (long long)n * D;
+  const KT* kb = k + b * kv_stride_b + (long long)n * D;
+  const KT* vb = v + b * kv_stride_b + (long long)n * D;
   const T* kn = k_new + head * D;
   const T* vn = v_new + head * D;
-  for (int base = j0; base < j1; base += kWarps * U * RPW) {
+  for (int base = j0; base < jl; base += kWarps * U * RPW) {
     W kw[U][NV], vw[U][NV];
     bool ok[U];
 #pragma unroll
     for (int u = 0; u < U; ++u) {  // issue every load of the round first
       const int j = base + (u * kWarps + warp) * RPW + sub;
-      ok[u] = j < j1;
+      ok[u] = j < jl;
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         kw[u][i] = W{};
@@ -218,9 +260,11 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         if (j < len) {
           kw[u][i] = __ldg(reinterpret_cast<const W*>(kb + j * row + col[i]));
           vw[u][i] = __ldg(reinterpret_cast<const W*>(vb + j * row + col[i]));
-        } else if (ok[u]) {  // j == len: the new token, one past the cache
-          kw[u][i] = __ldg(reinterpret_cast<const W*>(kn + col[i]));
-          vw[u][i] = __ldg(reinterpret_cast<const W*>(vn + col[i]));
+        } else if constexpr (!kQuant) {
+          if (ok[u]) {  // j == len: the new token, one past the cache
+            kw[u][i] = __ldg(reinterpret_cast<const W*>(kn + col[i]));
+            vw[u][i] = __ldg(reinterpret_cast<const W*>(vn + col[i]));
+          }
         }
       }
     }
@@ -231,7 +275,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         float f[VEC];
-        widen<T, VEC>(kw[u][i], f);
+        widen<KT, VEC>(kw[u][i], f);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) kf[i * VEC + e] = f[e];
       }
@@ -265,7 +309,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < NV; ++i) {
         float f[VEC];
-        widen<T, VEC>(vw[u][i], f);
+        widen<KT, VEC>(vw[u][i], f);
 #pragma unroll
         for (int e = 0; e < VEC; ++e) vf[i * VEC + e] = f[e];
       }
@@ -275,6 +319,39 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
         l[g] += p;
 #pragma unroll
         for (int e = 0; e < E; ++e) acc[g][e] += p * vf[e];
+      }
+    }
+  }
+
+  if constexpr (kQuant) {
+    // the new token at position len, in full precision, by warp 0's first
+    // row group (all of warp 0 takes part in the shuffles)
+    if (k_new != nullptr && len >= j0 && len < j1 && warp == 0) {
+      const float inv = 1.f / kv_scale;
+      float kf[E], vf[E];
+#pragma unroll
+      for (int i = 0; i < NV; ++i)
+#pragma unroll
+        for (int e = 0; e < VEC; ++e) {
+          kf[i * VEC + e] = has[i] ? to_float<T>(kn[col[i] + e]) * inv : 0.f;
+          vf[i * VEC + e] = has[i] ? to_float<T>(vn[col[i] + e]) * inv : 0.f;
+        }
+#pragma unroll
+      for (int g = 0; g < G; ++g) {
+        float x = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e) x += qr[g][e] * kf[e];
+#pragma unroll
+        for (int off = LPR / 2; off > 0; off >>= 1)
+          x += __shfl_xor_sync(0xffffffffu, x, off);
+        if (sub == 0) {
+          const float mx = fmaxf(m[g], x);
+          const float corr = exp2f(m[g] - mx), p = exp2f(x - mx);
+          m[g] = mx;
+          l[g] = l[g] * corr + p;
+#pragma unroll
+          for (int e = 0; e < E; ++e) acc[g][e] = acc[g][e] * corr + p * vf[e];
+        }
       }
     }
   }
@@ -332,6 +409,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
       lt += sm_l[w][g] * c;
       at += sm_acc[w][g][d] * c;
     }
+    if constexpr (kQuant) at *= kv_scale;  // the sum of int8 rows, scaled
     const long long hq = head * G + g;  // (b, h) in (B, H)
     if (direct) {
       out[hq * D + d] = from_float<T>(at / fmaxf(lt, 1e-20f));
@@ -373,21 +451,23 @@ decode_combine_kernel(const float* __restrict__ part_ml,
   out[idx] = from_float<T>(at / fmaxf(lt, 1e-20f));
 }
 
-template <typename T, int D, int G>
+template <typename T, typename KT, int D, int G>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const void* k_new, const void* v_new, const int* lengths,
                    void* out, float* scratch, int B, int S, int Hkv,
                    long long kv_stride_b, int n_split, int split_len,
-                   float scale, cudaStream_t stream) {
+                   float scale, float kv_scale, cudaStream_t stream) {
   const long long BH = (long long)B * Hkv * G;
   float* part_ml = scratch;
   float* part_acc = scratch == nullptr ? nullptr : scratch + 2 * n_split * BH;
   dim3 grid(n_split, Hkv, B);
-  decode_split_kernel<T, D, G><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(k_new),
+  const float scale_log2 =
+      sizeof(KT) == 1 ? scale * kLog2e * kv_scale : scale * kLog2e;
+  decode_split_kernel<T, KT, D, G><<<grid, kThreads, 0, stream>>>(
+      static_cast<const T*>(q), static_cast<const KT*>(k),
+      static_cast<const KT*>(v), static_cast<const T*>(k_new),
       static_cast<const T*>(v_new), lengths, static_cast<T*>(out), part_ml,
-      part_acc, S, Hkv, kv_stride_b, split_len, scale * kLog2e);
+      part_acc, S, Hkv, kv_stride_b, split_len, scale_log2, kv_scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_split == 1) return err;
   const long long n_out = BH * D;
@@ -397,19 +477,20 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename KT, int D>
 cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
                        const void* k_new, const void* v_new,
                        const int* lengths, void* out, float* scratch, int B,
                        int S, int Hkv, long long kv_stride_b, int n_split,
-                       int split_len, float scale, cudaStream_t stream) {
+                       int split_len, float scale, float kv_scale,
+                       cudaStream_t stream) {
   switch (G) {
-#define REPRO_G(g)                                                          \
-  case g:                                                                   \
-    if constexpr (g * D <= kMaxGD)                                          \
-      return launch<T, D, g>(q, k, v, k_new, v_new, lengths, out, scratch,  \
-                             B, S, Hkv, kv_stride_b, n_split, split_len,    \
-                             scale, stream);                                \
+#define REPRO_G(g)                                                           \
+  case g:                                                                    \
+    if constexpr (g * D <= kMaxGD)                                           \
+      return launch<T, KT, D, g>(q, k, v, k_new, v_new, lengths, out,        \
+                                 scratch, B, S, Hkv, kv_stride_b, n_split,   \
+                                 split_len, scale, kv_scale, stream);        \
     break;
     REPRO_G(1) REPRO_G(2) REPRO_G(4) REPRO_G(5) REPRO_G(6) REPRO_G(8)
     REPRO_G(16)
@@ -418,27 +499,35 @@ cudaError_t dispatch_g(int G, const void* q, const void* k, const void* v,
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, typename KT>
 cudaError_t dispatch_d(int D, int G, const void* q, const void* k,
                        const void* v, const void* k_new, const void* v_new,
                        const int* lengths, void* out, float* scratch, int B,
                        int S, int Hkv, long long kv_stride_b, int n_split,
-                       int split_len, float scale, cudaStream_t stream) {
-  switch (D) {
-#define REPRO_D(d)                                                           \
-  case d:                                                                    \
-    return dispatch_g<T, d>(G, q, k, v, k_new, v_new, lengths, out, scratch, \
-                            B, S, Hkv, kv_stride_b, n_split, split_len,      \
-                            scale, stream);
-    REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128) REPRO_D(160) REPRO_D(240)
-#undef REPRO_D
+                       int split_len, float scale, float kv_scale,
+                       cudaStream_t stream) {
+#define REPRO_D(d)                                                            \
+  case d:                                                                     \
+    return dispatch_g<T, KT, d>(G, q, k, v, k_new, v_new, lengths, out,       \
+                                scratch, B, S, Hkv, kv_stride_b, n_split,     \
+                                split_len, scale, kv_scale, stream);
+  if constexpr (sizeof(KT) == 1) {  // an int8 cache: D = 128 only
+    switch (D) { REPRO_D(128) }
+  } else {
+    switch (D) {
+      REPRO_D(16) REPRO_D(32) REPRO_D(64) REPRO_D(128) REPRO_D(160)
+      REPRO_D(240)
+    }
   }
+#undef REPRO_D
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. k_new / v_new may be null. The key axis
+// dtype: 0 = float32, 1 = bfloat16, of q, k_new, v_new and out; kv_int8: the
+// cache k, v is int8, dequantized as int8 x kv_scale (else it is of dtype and
+// kv_scale is not read). k_new / v_new may be null. The key axis
 // is cut into n_split ranges of split_len keys, which must cover S + 1
 // positions; with n_split > 1, `scratch` holds n_split * B * H * (D + 2)
 // floats (it may be null otherwise). Returns the cudaError_t of the
@@ -450,6 +539,7 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
                                       int H, int Hkv, int D,
                                       long long kv_stride_b, int n_split,
                                       int split_len, float scale, int dtype,
+                                      int kv_int8, float kv_scale,
                                       void* stream) {
   if (B <= 0 || S < 0 || Hkv <= 0 || H % Hkv != 0 || n_split < 1 ||
       split_len < 1 || (long long)n_split * split_len < (long long)S + 1 ||
@@ -460,13 +550,22 @@ extern "C" int repro_decode_attention(const void* q, const void* k,
   float* scr = static_cast<float*>(scratch);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = dispatch_d<float>(D, G, q, k, v, k_new, v_new, lens, out, scr, B, S,
-                            Hkv, kv_stride_b, n_split, split_len, scale, st);
-  else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(D, G, q, k, v, k_new, v_new, lens, out,
+  if (dtype == 0 && !kv_int8)
+    err = dispatch_d<float, float>(D, G, q, k, v, k_new, v_new, lens, out,
+                                   scr, B, S, Hkv, kv_stride_b, n_split,
+                                   split_len, scale, 1.f, st);
+  else if (dtype == 1 && !kv_int8)
+    err = dispatch_d<__nv_bfloat16, __nv_bfloat16>(
+        D, G, q, k, v, k_new, v_new, lens, out, scr, B, S, Hkv, kv_stride_b,
+        n_split, split_len, scale, 1.f, st);
+  else if (dtype == 0)
+    err = dispatch_d<float, int8_t>(D, G, q, k, v, k_new, v_new, lens, out,
                                     scr, B, S, Hkv, kv_stride_b, n_split,
-                                    split_len, scale, st);
+                                    split_len, scale, kv_scale, st);
+  else if (dtype == 1)
+    err = dispatch_d<__nv_bfloat16, int8_t>(
+        D, G, q, k, v, k_new, v_new, lens, out, scr, B, S, Hkv, kv_stride_b,
+        n_split, split_len, scale, kv_scale, st);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

@@ -65,11 +65,15 @@ def prefill_attention(q, k, v, *, window: int = 0, impl: str = "cuda"):
 
 
 def decode_attention(q, k, v, lengths=None, *, impl: str = "cuda",
-                     max_len: Optional[int] = None, k_new=None, v_new=None):
+                     max_len: Optional[int] = None, k_new=None, v_new=None,
+                     kv_scale: Optional[float] = None):
     """q: (B, H, D); k, v: (B, S, Hkv, D); lengths: (B,). Flash-decode GQA,
     optionally with the fresh token as a second branch (k_new, v_new:
     (B, Hkv, D)). `max_len` bounds the live lengths: the cache is trimmed to
-    it, rounded up to a multiple of 128, before either version reads it."""
+    it, rounded up to a multiple of 128, before either version reads it.
+    An int8 cache (int8 x `kv_scale`) goes to the kernel as it is; the
+    plain version dequantizes it first. A shape the kernel has no int8
+    instance for raises, as any shape it does not take does."""
     S = k.shape[1]
     if lengths is None and max_len is not None and max_len < S:
         raise ValueError("max_len < S requires lengths (see "
@@ -82,8 +86,9 @@ def decode_attention(q, k, v, lengths=None, *, impl: str = "cuda",
                              device=q.device)
     if _use_kernel(q, impl):
         _refuse_grad("decode_attention", q, k, v, k_new, v_new)
-        return flash_decode_attention(q, k, v, lengths, k_new, v_new)
-    return decode_attention_plain(q, k, v, lengths, k_new, v_new)
+        return flash_decode_attention(q, k, v, lengths, k_new, v_new,
+                                      kv_scale)
+    return decode_attention_plain(q, k, v, lengths, k_new, v_new, kv_scale)
 
 
 def wkv6(r, k, v, logw, u, state, *, impl: str = "cuda"):

@@ -15,6 +15,16 @@ window (`cfg.window` for a local layer, 0 for a global one). The kernels are
 reached as in the reference: K2 only for a fresh global prefill, K1 only
 for a global decode; a local layer and an MLA layer run torch ops under
 both impls (the reference has no kernel there either).
+
+A quantized cache (`kv_cache_dtype`: int8 standing for int8 x
+`kv_quant_scale`) follows one rule. Every write into it goes through
+`quantize_kv`: a decode step returns its new token's rows quantized, and a
+prefill returns its rows in the model's dtype for the slot cache's folds
+to quantize (`engine.kvcache`). Every read of it for attention goes through
+`dequantize_kv` — the append's prefix included — or hands K1 the int8 rows
+with the scale. The reference folds a prefill's rows into an int8 cache by
+a plain cast (F23) and attends to an append's int8 prefix as raw integers
+(F24); ROADMAP queue 3.
 """
 from __future__ import annotations
 
@@ -23,6 +33,8 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+
+from repro_torch.kernels.decode_attention import dequantize
 
 from .config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from .layers import apply_rope, param, rope_freqs
@@ -199,7 +211,7 @@ def quantize_kv(x, cfg: ModelConfig):
 def dequantize_kv(x, cfg: ModelConfig):
     if not cfg.kv_cache_dtype or x.dtype == cfg.torch_dtype:
         return x
-    return (x.float() * cfg.kv_quant_scale).to(cfg.torch_dtype)
+    return dequantize(x, cfg.kv_quant_scale, cfg.torch_dtype)
 
 
 def local_attention(q, k, v, q_start: int, window: int, *,
@@ -496,8 +508,11 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
                             pos.new_full((pad,), PAD_POS), pos])
 
         def keys(prefix, new):
+            # a quantized prefix is read dequantized, as decode reads it
+            # (the reference concatenates its int8 rows as they are, F24)
             prefix = torch.nn.functional.pad(
-                _repeat_kv(prefix, cfg.n_heads), (0, 0, 0, 0, 0, pad))
+                _repeat_kv(dequantize_kv(prefix, cfg), cfg.n_heads),
+                (0, 0, 0, 0, 0, pad))
             return torch.cat([prefix, _repeat_kv(new, cfg.n_heads)], dim=1)
         k_all, v_all = keys(prefix_kv["k"], k), keys(prefix_kv["v"], v)
         kv_valid = None
@@ -556,16 +571,21 @@ def gqa_decode(attn: Attention, cfg: ModelConfig, kind: str, x1, position,
     theta, window = _theta_window(cfg, kind)
     q = rope_single(q, position, theta)
     k = rope_single(k, position, theta)
-    k_c = dequantize_kv(_trim_ctx(cache["k"], ctx_limit), cfg)
-    v_c = dequantize_kv(_trim_ctx(cache["v"], ctx_limit), cfg)
+    k_c = _trim_ctx(cache["k"], ctx_limit)
+    v_c = _trim_ctx(cache["v"], ctx_limit)
     if attention_impl == "cuda" and kv_lens is not None and window == 0:
+        # an int8 cache goes to K1 as it is, with its scale: no dequantized
+        # copy of it is made (the plain version for CPU tensors makes one)
         from repro_torch.kernels import ops
+        scale = cfg.kv_quant_scale if k_c.dtype == torch.int8 else None
         out = ops.decode_attention(
             q[:, 0].contiguous(), k_c, v_c, kv_lens, impl="cuda",
-            k_new=k[:, 0].contiguous(), v_new=v[:, 0].contiguous())[:, None]
+            k_new=k[:, 0].contiguous(), v_new=v[:, 0].contiguous(),
+            kv_scale=scale)[:, None]
     else:
-        out = decode_attention(q, k_c, v_c, k, v, kv_lens=kv_lens,
-                               window=window, pos=position)
+        out = decode_attention(q, dequantize_kv(k_c, cfg),
+                               dequantize_kv(v_c, cfg), k, v,
+                               kv_lens=kv_lens, window=window, pos=position)
     out = out.reshape(x1.shape[0], 1, cfg.n_heads * cfg.head_dim)
     return out @ attn.wo, {"k": quantize_kv(k, cfg), "v": quantize_kv(v, cfg)}
 
@@ -617,8 +637,9 @@ def mla_prefill(attn: MLA, cfg: ModelConfig, x, start_pos,
         kv_pos = torch.cat([pstart + torch.arange(P, device=x.device),
                             pos.new_full((pad,), PAD_POS), pos])
 
-        def rows(prefix, new):
-            prefix = torch.nn.functional.pad(prefix, (0, 0, 0, pad))
+        def rows(prefix, new):  # dequantized, as in gqa_prefill (F24)
+            prefix = torch.nn.functional.pad(dequantize_kv(prefix, cfg),
+                                             (0, 0, 0, pad))
             return torch.cat([prefix, new], dim=1)
         ckv_all = rows(prefix_kv["ckv"], ckv)
         krope_all = rows(prefix_kv["krope"], krope)

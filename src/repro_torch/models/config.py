@@ -155,10 +155,19 @@ class ModelConfig:
         return pat, n_groups, rem
 
     # ----- KV/state bookkeeping ------------------------------------------------
+    @property
+    def kv_torch_dtype(self) -> torch.dtype:
+        """The attention cache's dtype: `kv_cache_dtype` (e.g. int8), else
+        the model's."""
+        return getattr(torch, self.kv_cache_dtype or self.dtype)
+
     def kv_bytes_per_token(self) -> int:
         """Bytes of decoder-side cache state appended per token (all layers).
-        Used by the serving engine's occupancy signal and provisioning."""
-        itemsize = self.torch_dtype.itemsize
+        Used by the serving engine's occupancy signal and provisioning. The
+        attention rows are counted at the cache's dtype: an int8 cache
+        appends half a bf16 one (the reference counts the model's dtype,
+        F25)."""
+        itemsize = self.kv_torch_dtype.itemsize
         total = 0
         for kind in self.layer_kinds():
             if kind == ATTN_GLOBAL:
@@ -173,12 +182,15 @@ class ModelConfig:
         return total
 
     def state_bytes_fixed(self) -> int:
-        """Per-conversation state that does NOT grow with context."""
+        """Per-conversation state that does NOT grow with context (a local
+        layer's window of rows at the cache's dtype, as in
+        kv_bytes_per_token)."""
         itemsize = self.torch_dtype.itemsize
         total = 0
         for kind in self.layer_kinds():
             if kind == ATTN_LOCAL:
-                total += 2 * self.window * self.n_kv_heads * self.head_dim * itemsize
+                total += (2 * self.window * self.n_kv_heads * self.head_dim
+                          * self.kv_torch_dtype.itemsize)
             elif kind == RWKV6:
                 n_heads = self.d_model // self.rwkv_head_size
                 total += n_heads * self.rwkv_head_size ** 2 * 4  # fp32 state

@@ -111,7 +111,7 @@ class EncDec(nn.Module):
 def cache_shapes(cfg: ModelConfig, batch: int, ctx: int):
     """{"self" | "cross": (shape, dtype)} of the cache tree's leaves (each
     section holds "k" and "v")."""
-    kv_dt = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
+    kv_dt = cfg.kv_torch_dtype
     tail = (cfg.n_kv_heads, cfg.head_dim)
     return {"self": ((cfg.n_layers, batch, ctx) + tail, kv_dt),
             "cross": ((cfg.n_layers, batch, cfg.encoder_seq) + tail,

@@ -29,7 +29,7 @@ def layer_cache_shapes(cfg: ModelConfig, kind: str, batch: int, ctx: int
     fixed-size. RWKV6's nh_pad comes from `recurrent._rwkv_dims`, as in the
     model itself (the reference's skeleton takes `rwkv_pad_heads_to or nh`,
     which disagrees with its model when 0 < rwkv_pad_heads_to < nh — F6)."""
-    kv_dt = getattr(torch, cfg.kv_cache_dtype or cfg.dtype)
+    kv_dt = cfg.kv_torch_dtype
     dt = cfg.torch_dtype
     if kind in (ATTN_GLOBAL, ATTN_LOCAL):
         L = min(ctx, cfg.window) if kind == ATTN_LOCAL and cfg.window else ctx

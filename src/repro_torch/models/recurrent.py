@@ -123,7 +123,7 @@ def wkv6_chunked(r, k, v, logw, u, state, chunk: int = 64):
     uf = u.float()
     tri_lower = torch.tril(torch.ones(c, c, dtype=torch.bool,
                                       device=r.device), diagonal=-1)
-    eye = torch.eye(c, dtype=torch.float32, device=r.device)
+    eye = torch.eye(c, dtype=rf.dtype, device=r.device)
     S0 = state.float()
     ys = []
     for c0 in range(0, S + pad, c):
@@ -134,7 +134,12 @@ def wkv6_chunked(r, k, v, logw, u, state, chunk: int = 64):
         A = torch.einsum("bthi,bjhi,btjhi->bhtj", rc, kc,
                          torch.exp(torch.clamp(dmat, max=0.0))
                          * tri_lower[None, :, :, None, None])
-        diag = torch.einsum("bthi,bthi->bht", rc, uf[None, None] * kc)
+        # The bonus term r·(u ⊙ k) can cancel to near 0 on a head, and the
+        # per-head group norm after it (variance << eps) then scales its
+        # rounding by up to 1/sqrt(eps) ~ 316: its 16-64 products are summed
+        # in float64, so the one rounding left is the result's own.
+        diag = torch.einsum("bthi,bthi->bht", rc.double(),
+                            (uf[None, None] * kc).double()).to(rc.dtype)
         A = A + eye[None, None] * diag[..., None]
         y = torch.einsum("bhtj,bjhi->bthi", A, vc)
         r_dec = rc * torch.exp(e_t)

@@ -13,8 +13,11 @@ from the shapes alone, and merges the splits in a second pass — so its
 cases cover rows with no key, len == S, idle slots longer than the trimmed
 read, B = 1 at S = 1024 (many splits), B = 16 at S = 64 (one split, no
 combine), every group size at D = 128 and 16, the dense family's heads (D =
-160 and 240, whose rows leave lanes idle, and G = 6) and a CUDA-graph replay
-against the eager call (not done yet: a persistent grid). K2
+160 and 240, whose rows leave lanes idle, and G = 6), an int8 cache at D =
+128 and every G (read as int8 x scale, against the plain version that
+dequantizes first; a head dim without an int8 instance raises) and a
+CUDA-graph replay against the eager call (not done yet: a persistent
+grid). K2
 (`csrc/prefill_attention.cu`, replacing the Pallas
 `flash_prefill_attention`) is bound by bytes up to S of ~900 at
 qwen3-0.6b's heads; in bf16 it runs on the tensor cores (`mma.sync` fed by
@@ -43,7 +46,8 @@ caches byte-identical through a ragged chunk, a slot joining, an append and
 a bucket captured after a kill and rejoin — the launches each replay
 counts, the cache unchanged by a capture, the refusal of a moved tensor,
 and graphed prefill and appends against the reference path byte for
-byte; whisper-small's decode chunk (its cross-attention and its
+byte, and for an int8 cache with every eager K1 call handed the int8
+rows; whisper-small's decode chunk (its cross-attention and its
 sinusoidal row in the graph) and internvl2-26b's turn-1 prefill with its
 patch embeddings (in the program's static input), graph against eager.
 The prefix pool's hit (a fold of the pooled rows, then the append graph
@@ -164,6 +168,105 @@ def test_cuda_decode_kernel_split_shapes(cuda, dtype, B, L, S, lens):
     new_only = vn.repeat_interleave(H // Hkv, dim=1)[empty]
     assert float((got[empty].float() - new_only.float()).abs().max()
                  if empty.any() else 0.0) < TOLS[dtype]
+
+
+def _int8(dev, seed, shape, scale):
+    """An int8 cache of the values a quantized cache holds: N(0, 0.6)
+    rows through `quantize_kv`'s round(x / scale), clamped to 127."""
+    x = np.random.RandomState(seed).standard_normal(shape) * 0.6 / scale
+    return torch.from_numpy(np.clip(np.round(x), -127, 127).astype(
+        np.int8)).to(dev)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("H,Hkv", [(16, 8), (16, 16), (40, 8), (48, 8),
+                                   (32, 4), (64, 8), (16, 1)])
+@pytest.mark.parametrize("B,L,S,lens", [
+    (5, 512, 256, [1, 256, 3, 400, 130]),   # an idle slot past the read
+    (1, 1024, 1024, [517]),                 # many splits
+    (3, 512, 256, [0, 256, 400])])          # an empty row
+def test_cuda_decode_kernel_int8_cache(cuda, dtype, H, Hkv, B, L, S, lens):
+    """K1 reading an int8 cache (int8 x 0.05) at D = 128 and every G, with
+    and without the new token (in q's dtype), against the plain version,
+    which dequantizes first."""
+    D, scale = 128, 0.05
+    q = _rand(cuda, dtype, 0, (B, H, D))
+    kb, vb = (_int8(cuda, i, (B, L, Hkv, D), scale) for i in (1, 2))
+    kn, vn = (_rand(cuda, dtype, i, (B, Hkv, D)) for i in (3, 4))
+    k, v = kb[:, :S], vb[:, :S]
+    lens = torch.tensor(lens, dtype=torch.int32, device=cuda)
+    got = flash_decode_attention(q, k, v, lens, kn, vn, kv_scale=scale)
+    no_new = ops.decode_attention(q, k, v, lens, kv_scale=scale)
+    want = decode_attention_plain(q, k, v, lens, kn, vn, scale)
+    want_nn = decode_attention_plain(q, k, v, lens, kv_scale=scale)
+    torch.cuda.synchronize()
+    assert got.dtype == q.dtype
+    assert float((got.float() - want.float()).abs().max()) < TOLS[dtype]
+    assert float((no_new.float() - want_nn.float()).abs().max()) \
+        < TOLS[dtype]
+    empty = lens == 0
+    assert torch.equal(no_new[empty], torch.zeros_like(no_new[empty]))
+
+
+@pytest.mark.gpu
+def test_cuda_decode_kernel_int8_refuses_what_it_does_not_take(cuda):
+    """An int8 cache at a head dim without an int8 instance raises (no
+    quiet dequantize-and-call); so does an int8 cache without its scale,
+    or a scale with a float cache."""
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    q = torch.zeros(1, 4, 64, device=cuda)
+    k = torch.zeros(1, 8, 2, 64, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="int8 cache"):
+        ops.decode_attention(q, k, k, one, kv_scale=0.05)
+    q = torch.zeros(1, 4, 128, device=cuda)
+    k = torch.zeros(1, 8, 2, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="kv_scale"):
+        flash_decode_attention(q, k, k, one)
+    with pytest.raises(ValueError, match="kv_scale"):
+        flash_decode_attention(q, k.float(), k.float(), one, kv_scale=0.05)
+
+
+@pytest.mark.gpu
+def test_int8_engine_graph_equals_eager_and_feeds_k1_int8(cuda, monkeypatch):
+    """Reduced qwen3-0.6b in fp32 with an int8 cache and K1's int8 head
+    dim (128): a ragged chunk and an append through the CUDA graphs
+    against the same bodies run eagerly, tokens and caches byte-identical,
+    and every K1 call of the eager bodies is handed the int8 cache
+    itself."""
+    from repro_torch.engine.kvcache import leaves
+    cfg = get_reduced("qwen3-0.6b").scaled(kv_cache_dtype="int8",
+                                           head_dim=128)
+    params = build_model(cfg).init(0, cuda)
+    seen = []
+    real = ops.flash_decode_attention
+
+    def spy(q, k, v, *a, **kw):
+        seen.append(k.dtype)
+        return real(q, k, v, *a, **kw)
+    out = {}
+    for graphs in (False, True):
+        eng = ReplicaEngine(cfg, params, n_slots=4, max_ctx=256,
+                            cuda_graphs=graphs)
+        if not graphs:
+            monkeypatch.setattr(ops, "flash_decode_attention", spy)
+        nt = np.zeros(4, np.int32)
+        em = np.zeros(4, bool)
+        for i, n in enumerate((37, 90, 5)):
+            s = eng.kv.acquire()
+            nt[s] = int(eng.prefill_conversation(
+                s, np.arange(3 + i, 3 + i + n, dtype=np.int32) % 500)[0])
+            em[s] = True
+        seq, _ = eng.decode_steps(nt, em, np.array([7, 3, 5, 0], np.int32))
+        tok, _ = eng.append_prefill(0, np.arange(10, dtype=np.int32))
+        monkeypatch.setattr(ops, "flash_decode_attention", real)
+        out[graphs] = (seq, int(tok), [t.clone() for _, t in
+                                       leaves(eng.kv.caches)])
+    assert seen and set(seen) == {torch.int8}
+    assert np.array_equal(out[False][0], out[True][0])
+    assert out[False][1] == out[True][1]
+    assert all(torch.equal(a, b) for a, b in zip(out[False][2],
+                                                 out[True][2]))
 
 
 @pytest.mark.gpu

@@ -186,18 +186,30 @@ def test_decode_split_plan_covers_the_keys(B, Hkv, S, D):
 
 
 def test_decode_split_plan_depends_on_shapes_only():
-    """The planner takes the shapes and nothing else, gives the same plan
-    for the same shapes, and splits the served shape (16 slots x 8 KV heads
-    at a 256 ctx bucket) into more than B * Hkv blocks; the wrapper never
-    reads the lengths back on the host."""
+    """The planner takes the shapes (and the cache's element size) and
+    nothing else, gives the same plan for the same shapes, and splits the
+    served shape (16 slots x 8 KV heads at a 256 ctx bucket) into more
+    than B * Hkv blocks, an int8 cache's into fewer splits of twice the
+    keys at G <= 4 (a 16-byte piece holds 16 of its values) and by the
+    kernel's narrower pieces at G = 5-8 (8 values) and 16 (4); the wrapper
+    never reads the lengths back on the host."""
     import inspect
     assert list(inspect.signature(plan_decode_splits).parameters) == [
-        "B", "Hkv", "S", "D"]
+        "B", "Hkv", "S", "D", "kv_itemsize", "G"]
     plans = {plan_decode_splits(16, 8, 256, 128) for _ in range(3)}
     assert len(plans) == 1
-    n, _ = plans.pop()
+    n, length = plans.pop()
     assert n > 1
     assert plan_decode_splits(1, 8, 1024, 128)[0] > n
+    assert plan_decode_splits(16, 8, 256, 128, 4) == (n, length)
+    assert plan_decode_splits(16, 8, 256, 128, 1) == (2, 129)
+    assert plan_decode_splits(16, 8, 256, 128, 1, 2) == (2, 129)
+    assert [k1_module.key_chunk(128, 1, G) for G in (1, 4, 5, 8, 16)] == [
+        128, 128, 64, 64, 32]
+    assert plan_decode_splits(16, 8, 256, 128, 1, 5) == (4, 65)
+    assert plan_decode_splits(16, 8, 256, 128, 1, 16) == (5, 52)
+    for G in (1, 2, 4, 5, 6, 8, 16):
+        assert plan_decode_splits(16, 8, 256, 128, 2, G) == (n, length)
     src = inspect.getsource(flash_decode_attention)
     for host_read in (".item(", ".cpu(", ".tolist(", ".numpy("):
         assert host_read not in src
