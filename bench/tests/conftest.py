@@ -1,0 +1,12 @@
+"""The benchmark's CPU tests: the program (`src/`) and the benchmark on
+the path. Run from the checkout's root:
+
+    python -m pytest -q bench/tests
+"""
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[2]
+for p in (str(ROOT), str(ROOT / "src")):
+    if p not in sys.path:
+        sys.path.insert(0, p)
