@@ -41,6 +41,21 @@ Event kinds (the `data` payload names state owned elsewhere):
                      stale and will re-stream byte-identically. Subscribers
                      holding per-(cid, turn) accumulations must reset that
                      key (the gateway does); completed turns never rewind.
+* ``span``         — an interval the engine measured (`repro_torch.engine
+                     .trace`): ``{"name", "span_id", "parent", "host_t0_ns",
+                     "host_t1_ns"}`` plus ``"t0"`` (the logical start, for
+                     spans on the server's logical clock) and the span's own
+                     attributes; `t` is the logical end (for a host-clock
+                     span, the logical instant it was published at), and
+                     cid / turn_idx / node_id name the conversation, turn and
+                     replica it belongs to. ``parent`` is the id of the span
+                     whose work caused it (None at the top).
+
+Spans are OPT-IN BY NAME: only a subscriber that names ``span`` in its
+`kinds` receives them; a wildcard subscriber (``kinds=None``, as the live
+gateway's) does not, so subscribing to everything never switches tracing
+on. With no ``span`` subscriber every span site makes one `wants` lookup
+and builds nothing else.
 """
 from __future__ import annotations
 
@@ -57,10 +72,14 @@ EV_NODE_FAILURE = "node_failure"
 EV_NODE_JOIN = "node_join"
 EV_NODE_QUARANTINE = "node_quarantine"
 EV_RECOVERY = "recovery"
+EV_SPAN = "span"
 
 EVENT_KINDS = (EV_SESSION, EV_TOKENS, EV_TURN_FINISH, EV_ADMISSION_PARK,
                EV_ADMISSION_ADMIT, EV_NODE_FAILURE, EV_NODE_JOIN,
-               EV_NODE_QUARANTINE, EV_RECOVERY)
+               EV_NODE_QUARANTINE, EV_RECOVERY, EV_SPAN)
+# kinds a wildcard subscriber does not receive: only a subscriber that names
+# them does (see the module docstring)
+OPT_IN_KINDS = (EV_SPAN,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -85,14 +104,14 @@ class EventBus:
     mutate runtime state — the bus is a read path.
 
     `wants(kind)` is the zero-cost guard runtimes check before building an
-    event: with no subscriber for `kind` (and no wildcard subscriber) the
-    hot paths skip payload construction entirely.
+    event: with no subscriber for `kind` (and, for a kind that is not
+    opt-in, no wildcard subscriber) the hot paths skip payload construction
+    entirely.
     """
 
     def __init__(self):
         # kind -> subscriber list; the None key holds wildcard subscribers
         self._subs: Dict[Optional[str], List[Callable[[ServeEvent], None]]] = {}
-        self.n_published = 0
 
     def subscribe(self, fn: Callable[[ServeEvent], None],
                   kinds: Optional[Sequence[str]] = None
@@ -122,11 +141,13 @@ class EventBus:
         return unsubscribe
 
     def wants(self, kind: str) -> bool:
+        if kind in OPT_IN_KINDS:
+            return bool(self._subs.get(kind))
         return bool(self._subs.get(None) or self._subs.get(kind))
 
     def publish(self, ev: ServeEvent):
-        self.n_published += 1
         for fn in self._subs.get(ev.kind, ()):
             fn(ev)
-        for fn in self._subs.get(None, ()):
-            fn(ev)
+        if ev.kind not in OPT_IN_KINDS:
+            for fn in self._subs.get(None, ()):
+                fn(ev)

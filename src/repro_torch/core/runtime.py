@@ -178,6 +178,9 @@ class Admission:
     # prefix is computed. Set from an OBSERVED pool hit at offer time, never
     # from a prediction of what the pool might hold later.
     charge_tokens: Optional[int] = None
+    # logical time of the first offer (set by `Runtime._offer` unless the
+    # placer gave it): the start of the admission wait
+    offered_t: Optional[float] = None
 
     @property
     def charge(self) -> int:
@@ -733,6 +736,10 @@ class Runtime(abc.ABC):
             self._on_reoffer_move(adm, node_id, target)
             self._offer(target, adm, now)
 
+    def _on_admit(self, adm: Admission, node_id: int, now: float) -> None:
+        """Hook: `adm` is admitted on `node_id` at `now`, just before its
+        work runs. Backends that trace admissions override it."""
+
     def _offer(self, node_id: int, adm: Admission, now: float) -> bool:
         """Admit `adm` on `node_id` immediately if it has capacity and no one
         is already waiting (FIFO fairness); otherwise park it in the node's
@@ -752,6 +759,8 @@ class Runtime(abc.ABC):
                 f"admission for conversation {adm.cid} ({adm.kind}) offered "
                 f"to {target.lifecycle} node {node_id}; placements must "
                 f"name an ACTIVE node")
+        if adm.offered_t is None:
+            adm.offered_t = now
         q = self._admission[node_id]
         # evaluate capacity even when others are waiting: _can_admit is also
         # where work that can NEVER fit raises — that must happen at offer
@@ -761,6 +770,7 @@ class Runtime(abc.ABC):
             self._publish(EV_ADMISSION_ADMIT, now, cid=adm.cid,
                           node_id=node_id, kind=adm.kind,
                           need_tokens=adm.need_tokens)
+            self._on_admit(adm, node_id, now)
             adm.ready(node_id)
             return True
         q.push(adm)
@@ -823,6 +833,7 @@ class Runtime(abc.ABC):
             self._publish(EV_ADMISSION_ADMIT, now, cid=adm.cid,
                           node_id=node_id, kind=adm.kind,
                           need_tokens=adm.need_tokens)
+            self._on_admit(adm, node_id, now)
             adm.ready(node_id)
 
     # ----- shared observables -----------------------------------------------

@@ -22,7 +22,8 @@ What a replay needs, and what this module does about it:
 * A replay calls no kernel wrapper. A program keeps what its capture added
   to each of the port's launch counters (`kernels.ops.launch_counts`) and
   adds that on every replay; building a program (its warm-up pass and the
-  capture) counts nothing, as its seconds go to `compile_s`, not to a dt.
+  capture) counts nothing, as its seconds go to `compile_s`, not to a dt,
+  and to the program's own `build_s`.
 * No fallback: a capture or a replay that fails raises, naming the
   program's key.
 * The cycle collector stays off during a capture. A dead replica's
@@ -105,6 +106,7 @@ class Program:
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self.launches: Dict[str, int] = {}  # of the port's kernels a replay
         self.capture_s = 0.0
+        self.build_s = 0.0  # warm-up pass and capture, as charged to compile_s
         self._names: List[str] = []  # what the graph binds, and where
         self._ptrs: List[int] = []
 

@@ -62,7 +62,14 @@ the chunked `wkv6_chunked` and the log-depth `rglru_scan_logdepth`.
 Timing: every measured dt ends in `torch.cuda.synchronize()` on a CUDA
 replica. Building the CUDA kernels and building a program (its warm-up pass
 and its capture) are charged to `compile_s` of the replica that triggered
-them, never to a dt.
+them, never to a dt, and to the program's `build_s`.
+
+Spans (`engine.trace`, with a ``span`` subscriber on the server's bus):
+``replica.prefill``, ``replica.append`` and ``replica.decode`` cover a
+call's timed interval, carrying its lengths (``len``, ``prev``; a chunk's
+live ``lengths``, ``emit`` and ``rem``), with one child, the program's run:
+``programs.replay`` (the address guard and the launch) or
+``programs.eager``.
 """
 from __future__ import annotations
 
@@ -82,6 +89,7 @@ from .kvcache import (SlotKVCache, fold_decode_step, fold_prefill,
                       fold_prefill_at, gather_slot_prefix, grouped, growing,
                       leaves, map_leaves, prefix_hash, slice_slot_prefix)
 from .programs import Program, pool_bytes, side_stream, uncounted
+from .trace import NO_TRACER
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
 
@@ -168,6 +176,7 @@ class ReplicaEngine:
                               replica_id=replica_id, device=self.device)
         self.replica_id = replica_id
         self.role = role
+        self.tracer = NO_TRACER  # the serving runtime's, once it has one
         self.attention_impl = attention_impl
         # recurrent prefill consumes every position: padding would corrupt
         # the state, so such a model prefills at the exact length, eagerly
@@ -247,19 +256,26 @@ class ReplicaEngine:
                 self._pool = torch.cuda.graph_pool_handle()
                 self._stream = torch.cuda.Stream(self.device)
             prog.capture(self._bound(), self._pool, self._stream)
-        self.compile_s += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        self.compile_s += dt
+        prog.build_s += dt
         return prog
 
     def _run(self, prog: Program, host: np.ndarray,
-             steps: Optional[int] = None) -> torch.Tensor:
+             steps: Optional[int] = None, sp=None) -> torch.Tensor:
         """One run of a program on `host` inputs: one copy in, then the
         graph's replay or the eager body (`steps` calls of it, by default
-        the program's). Returns its output buffer; nothing is read back."""
+        the program's). Returns its output buffer; nothing is read back.
+        A traced call's span `sp` brackets the replay or the eager run."""
         prog.load(host)
+        if sp is not None:
+            sp.begin("programs.replay" if self._graphs else "programs.eager")
         if self._graphs:
             prog.replay(self._bound())
         else:
             prog.run_eager(steps)
+        if sp is not None:
+            sp.end()
         return prog.out
 
     def programs(self) -> Dict[Tuple, Program]:
@@ -405,17 +421,22 @@ class ReplicaEngine:
                 else self._get_append(pad_to, ctx))
 
     def _run_prefill(self, prog: Optional[Program], host: np.ndarray,
-                     ctx: Optional[int], fe=None) -> int:
+                     ctx: Optional[int], fe=None, sp=None) -> int:
         """The token of one (append-)prefill, `fe` a turn-1's frontend
         embeddings: through its program (fe copied into its static input),
         or the same body eagerly. The read of the token is the one host
-        sync."""
+        sync. `sp` as in `_run`."""
         if prog is not None:
             if fe is not None:
                 self._frontend_in[prog.key].copy_(fe)
-            return int(self._run(prog, host))
+            return int(self._run(prog, host, sp=sp))
         tok = torch.zeros(1, dtype=torch.int32, device=self.device)
-        self._prefill_body(self._tokens(host), tok, ctx, fe=fe)
+        ins = self._tokens(host)
+        if sp is not None:
+            sp.begin("programs.eager")
+        self._prefill_body(ins, tok, ctx, fe=fe)
+        if sp is not None:
+            sp.end()
         return int(tok)
 
     def warmup_prefill(self, lengths=None, ctx_limits=None) -> float:
@@ -505,10 +526,13 @@ class ReplicaEngine:
         prog = self._prefill_program(true_len, pad_to, None,
                                      n_front)  # OFF the clock
         host = self._prefill_host(slot, tokens, pad_to, 0)
-        t0 = time.perf_counter()
-        tok = self._run_prefill(prog, host, None, frontend_embeds)
-        self.kv.lengths[slot] = n_front + true_len
-        dt = self._account_prefill(t0, true_len)
+        with self.tracer.host("replica.prefill", self.replica_id) as sp:
+            t0 = time.perf_counter()
+            tok = self._run_prefill(prog, host, None, frontend_embeds, sp)
+            self.kv.lengths[slot] = n_front + true_len
+            dt = self._account_prefill(t0, true_len)
+            if sp is not None:
+                sp.close(len=true_len, prev=0)
         return np.int32(tok), dt
 
     def _frontend_rows(self, fe) -> int:
@@ -603,11 +627,14 @@ class ReplicaEngine:
             prog = self._prefill_program(len(delta), pad_to,
                                          e.ctx)  # OFF the clock
             host = self._prefill_host(slot, delta, pad_to, prefix_len)
-            t0 = time.perf_counter()
-            fold_prefill(self.kv.caches, e.caches, slot, 0, self.cfg)
-            tok = self._run_prefill(prog, host, e.ctx)
-            self.kv.lengths[slot] = prefix_len + len(delta)
-            dt = self._account_prefill(t0, len(delta))
+            with self.tracer.host("replica.prefill", self.replica_id) as sp:
+                t0 = time.perf_counter()
+                fold_prefill(self.kv.caches, e.caches, slot, 0, self.cfg)
+                tok = self._run_prefill(prog, host, e.ctx, sp=sp)
+                self.kv.lengths[slot] = prefix_len + len(delta)
+                dt = self._account_prefill(t0, len(delta))
+                if sp is not None:
+                    sp.close(len=len(delta), prev=prefix_len, pooled=True)
             self.n_pooled_prefix_tokens += prefix_len
             return np.int32(tok), dt
         finally:
@@ -646,10 +673,13 @@ class ReplicaEngine:
         pad_to = self._prefill_pad(true_len, self.kv.max_ctx - prev)
         prog = self._prefill_program(true_len, pad_to, ctx)  # OFF the clock
         host = self._prefill_host(slot, tokens, pad_to, prev)
-        t0 = time.perf_counter()
-        tok = self._run_prefill(prog, host, ctx)
-        self.kv.lengths[slot] = prev + true_len
-        dt = self._account_prefill(t0, true_len)
+        with self.tracer.host("replica.append", self.replica_id) as sp:
+            t0 = time.perf_counter()
+            tok = self._run_prefill(prog, host, ctx, sp=sp)
+            self.kv.lengths[slot] = prev + true_len
+            dt = self._account_prefill(t0, true_len)
+            if sp is not None:
+                sp.close(len=true_len, prev=prev)
         return np.int32(tok), dt
 
     def _append_reference(self, slot: int, tokens: np.ndarray
@@ -802,12 +832,17 @@ class ReplicaEngine:
         prog = self._get_fused(n_steps, ctx_limit)  # OFF the clock
         host = np.concatenate([np.asarray(next_tokens, np.int32),
                                self.kv.lengths, emit_mask, rem, [0]])
-        t0 = time.perf_counter()
-        seq = self._run(prog, host, steps=n_max)
-        out = seq[:n_max].cpu().numpy()  # the one host sync per chunk
-        self.kv.lengths += np.where(emit_mask, rem, 0).astype(np.int32)
-        self._sync()
-        dt = time.perf_counter() - t0
+        with self.tracer.host("replica.decode", self.replica_id) as sp:
+            t0 = time.perf_counter()
+            seq = self._run(prog, host, steps=n_max, sp=sp)
+            out = seq[:n_max].cpu().numpy()  # the one host sync per chunk
+            self.kv.lengths += np.where(emit_mask, rem, 0).astype(np.int32)
+            self._sync()
+            dt = time.perf_counter() - t0
+            if sp is not None:
+                n = self.kv.n_slots
+                sp.close(lengths=host[n:2 * n].tolist(),
+                         emit=emit_mask.tolist(), rem=rem.tolist())
         self.compute_s += dt
         self.decode_s += dt
         self.n_decode_tokens += int(rem[emit_mask].sum())

@@ -47,12 +47,35 @@ the measurable baseline. Either way the scan itself is byte-for-byte the
 ragged donated-KV contract documented in ROADMAP "Serving runtime", and
 per-(cid, turn) token streams are identical across rotation on/off and
 any refill ordering.
+
+Spans (`engine.trace`; published only to a ``span`` subscriber of `bus`)
+lie on the logical clock, at the points where the state already changes:
+``server.conversation`` (arrival -> last token), ``server.turn``
+(runnable -> last token) under it, and under each turn the intervals that
+stage it: ``server.admission`` (offered -> admitted; kind arrival, bind,
+turn or recovery), ``server.wait_replica`` (admitted or runnable -> the
+replica's clock frees), ``server.prefill`` and ``server.append`` (the
+call's logical interval), ``server.transfer`` (each package move; a failed
+attempt marked ``failed``, lasting its backoff) and ``server.wait_join``
+(staged -> the start of the chunk that first decodes the turn). A turn's
+children carry ``attempt``, the recoveries the turn has been through: on
+a failure-free path attempt 0 tiles runnable -> that chunk's start. A
+replica failure opens the next attempt at the failure (at the tool's
+return, for a tool-waiting turn): a turn staged but not yet decoded then
+ends its attempt with a ``server.wait_join`` marked ``interrupted``, so
+every attempt tiles its start -> its first chunk's start (or the
+failure), and a turn that had decoded leaves the decode between.
+(Not covered: a remote turn's admission parked on a replica that fails is
+re-planned, and the time it sat parked is in no span.) A span bracketing
+a replica call is the parent of the replica's host-clock spans.
+`ServeSession` states are not spans and are unchanged.
 """
 from __future__ import annotations
 
 import dataclasses
 import heapq
 import itertools
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -72,6 +95,18 @@ from repro_torch.core.signals import (NODE_ACTIVE, ClusterView, NodeState,
 
 from .kvcache import prefix_hash
 from .replica import DECODE_CHUNKS, ReplicaEngine, decode_chunk_floor
+from .trace import Tracer
+
+
+@dataclasses.dataclass
+class _TurnSpan:
+    """A turn's open ``server.turn`` span (tracing)."""
+    span_id: int
+    turn_idx: int
+    t0: float            # runnable
+    host_t0_ns: int
+    gen: int             # the conversation's generation when it opened
+    staged_t: Optional[float] = None  # staged, and in no chunk yet
 
 
 @dataclasses.dataclass
@@ -252,6 +287,86 @@ class EngineServer(Runtime):
         # token in order (lets tests assert end-to-end token equality
         # across decode modes)
         self.sampled_tokens: Dict[Tuple[int, int], List[int]] = {}
+        # spans: the replicas publish on this bus too
+        self.tracer = Tracer(self.bus, lambda: self._now)
+        for r in replicas:
+            r.tracer = self.tracer
+        # open spans while tracing: cid -> (span id, host_t0_ns) of the
+        # conversation, and its turn's
+        self._conv_spans: Dict[int, Tuple[int, int]] = {}
+        self._turn_spans: Dict[int, _TurnSpan] = {}
+
+    # ----- spans -----------------------------------------------------------------
+    def _open_turn(self, cid: int, idx: int, t: float):
+        """Turn `idx` of `cid` became runnable at `t`. A turn already open
+        (re-planned, or recovering) keeps its start."""
+        ts = self._turn_spans.get(cid)
+        if ts is None or ts.turn_idx != idx:
+            self._turn_spans[cid] = _TurnSpan(
+                self.tracer.new_id(), idx, t, time.perf_counter_ns(),
+                self._gen.get(cid, 0))
+
+    def _span(self, name: str, cid: int, t0: float, t: float,
+              node_id: Optional[int] = None, **attrs):
+        """Publish [t0, t] under `cid`'s open turn (with no parent if the
+        turn opened before tracing began)."""
+        ts = self._turn_spans.get(cid)
+        if ts is None:
+            self.tracer.emit(name, t0, t, None, cid, None, node_id, **attrs)
+            return
+        self.tracer.emit(name, t0, t, ts.span_id, cid, ts.turn_idx, node_id,
+                         attempt=self._gen.get(cid, 0) - ts.gen, **attrs)
+
+    def _call(self, name: str, cid: int, node_id: int):
+        """A span around a replica call, under `cid`'s open turn as in
+        `_span` (``with``; None with tracing off)."""
+        ts = self._turn_spans.get(cid)
+        if ts is None:
+            return self.tracer.call(name, None, cid, None, node_id)
+        return self.tracer.call(name, ts.span_id, cid, ts.turn_idx, node_id,
+                                attempt=self._gen.get(cid, 0) - ts.gen)
+
+    def _staged(self, cid: int, t: float):
+        """`cid`'s open turn staged for decode at `t`."""
+        ts = self._turn_spans.get(cid)
+        if ts is not None:
+            ts.staged_t = t
+
+    def _joined(self, cid: int, t: float, node_id: int,
+                interrupted: bool = False):
+        """`cid`'s staged turn joins a chunk starting at `t`, or a failure
+        at `t` cuts it off (at its staging, if that lies later): its
+        ``server.wait_join``."""
+        ts = self._turn_spans.get(cid)
+        if ts is not None and ts.staged_t is not None:
+            attrs = {"interrupted": True} if interrupted else {}
+            self._span("server.wait_join", cid, ts.staged_t,
+                       max(ts.staged_t, t), node_id, **attrs)
+            ts.staged_t = None
+
+    def _close_turn(self, conv: Conversation, idx: int, t: float,
+                    node_id: int):
+        """Turn `idx` finished at `t`: its span and, after the last turn,
+        the conversation's."""
+        tr, cid = self.tracer, conv.cid
+        cs = self._conv_spans.get(cid)
+        ts = self._turn_spans.get(cid)
+        if ts is not None and ts.turn_idx == idx:
+            del self._turn_spans[cid]
+            tr.emit("server.turn", ts.t0, t, None if cs is None else cs[0],
+                    cid, idx, node_id, span_id=ts.span_id,
+                    host_t0_ns=ts.host_t0_ns)
+        if idx + 1 == conv.n_turns and cs is not None:
+            del self._conv_spans[cid]
+            tr.emit("server.conversation", conv.arrival_s, t, None, cid,
+                    node_id=node_id, span_id=cs[0], host_t0_ns=cs[1])
+
+    def _on_admit(self, adm: Admission, node_id: int, now: float):
+        if self.tracer.on:
+            kind = ("recovery" if adm.kind == "arrival"
+                    and adm.cid in self._recover_t0 else adm.kind)
+            self._span("server.admission", adm.cid, adm.offered_t,
+                       max(adm.offered_t, now), node_id, kind=kind)
 
     # ----- helpers ---------------------------------------------------------------
     def _preamble_token_block(self, preamble_id: int, n: int) -> np.ndarray:
@@ -453,6 +568,10 @@ class EngineServer(Runtime):
 
     # ----- arrival & turn-1 prefill -------------------------------------------------
     def _arrive(self, conv: Conversation):
+        if self.tracer.on:
+            self._conv_spans[conv.cid] = (self.tracer.new_id(),
+                                          time.perf_counter_ns())
+            self._open_turn(conv.cid, 0, conv.arrival_s)
         pl = self.sched.place_first_prefill(view_of(conv), self.view)
         st = self.states[pl.node_id]
         # backlog observable covers parked + admitted-unstarted prefill
@@ -469,7 +588,8 @@ class EngineServer(Runtime):
                               lambda nid, conv=conv, charge=charge:
                               self._prefill_turn1(conv, nid, charge),
                               kind="arrival",
-                              charge_tokens=None if delta is None else delta),
+                              charge_tokens=None if delta is None else delta,
+                              offered_t=conv.arrival_s),
                     self._now)
 
     def _on_reoffer_move(self, adm: Admission, from_node: int, to_node: int):
@@ -501,9 +621,14 @@ class EngineServer(Runtime):
             fe = torch.zeros((1, node.cfg.frontend_len or node.cfg.encoder_seq,
                               node.cfg.d_model), dtype=node.cfg.torch_dtype,
                              device=node.device)
-        next_tok, dt = node.prefill_conversation(
-            slot, tokens, fe, prefix_len=self._prefix_split(conv, node))
+        with self._call("server.prefill", conv.cid, node_id) as sp:
+            next_tok, dt = node.prefill_conversation(
+                slot, tokens, fe, prefix_len=self._prefix_split(conv, node))
         dt = self._stretched(node_id, dt)
+        if sp is not None:
+            self._span("server.wait_replica", conv.cid, self._now, start,
+                       node_id)
+            sp.close(start, start + dt, len=len(tokens))
         self._sync_pool_state(node_id)
         done_t = start + dt
         self.clock[node_id] = done_t
@@ -562,6 +687,9 @@ class EngineServer(Runtime):
                     f"(max_transfer_retries={self.max_transfer_retries}); "
                     f"giving up loudly")
             backoff = self.transfer_retry_backoff_s * (2 ** (attempt - 1))
+            if self.tracer.on:
+                self._span("server.transfer", conv.cid, t, t + backoff,
+                           node_id, nbytes=0, failed=True)
             self.log.append(
                 f"t={t:.3f} KV transfer to replica {node_id} FAILED for "
                 f"cid {conv.cid} (attempt {attempt}); retrying in "
@@ -592,6 +720,9 @@ class EngineServer(Runtime):
         self.n_transfers += 1
         self.records[conv.cid].n_kv_transfers += 1
         xfer_t = nbytes / self.link_bw + 0.005
+        if self.tracer.on:
+            self._span("server.transfer", conv.cid, t, t + xfer_t, node_id,
+                       nbytes=nbytes)
         self._bind_done(conv, node_id, dslot, next_tok, t + xfer_t,
                         turn_idx=turn_idx, arrival_t=arrival_t)
 
@@ -631,6 +762,8 @@ class EngineServer(Runtime):
                          stream=[next_tok],
                          gen=self._gen.get(conv.cid, 0))
         self._turn_arrival[conv.cid] = task.arrival_t
+        if self.tracer.on:
+            self._staged(conv.cid, ready_t)
         if self.record_tokens:
             # alias the task's live stream: a failure rewind rebuilds the
             # task, so the dict always points at the CURRENT attempt's tokens
@@ -747,6 +880,9 @@ class EngineServer(Runtime):
         if not self.rotation:
             start = max(self._now, self.clock[node_id])
 
+        if self.tracer.on:
+            for task in q:
+                self._joined(task.conv.cid, start, node_id)
         if self.decode_mode == "reference":
             n = 1
             rem = np.minimum(rem, 1)
@@ -839,6 +975,8 @@ class EngineServer(Runtime):
             return
         turn = conv.turns[idx]
         sess = self.sessions[conv.cid]
+        if self.tracer.on:
+            self._close_turn(conv, idx, t, self._slots[conv.cid][0])
         self.journal.record(conv.cid, idx, task.stream)
         self._publish(EV_TURN_FINISH, t, cid=conv.cid, turn_idx=idx,
                       node_id=self._slots[conv.cid][0],
@@ -880,6 +1018,8 @@ class EngineServer(Runtime):
 
     # ----- turn 2+ --------------------------------------------------------------------
     def _next_turn(self, conv: Conversation, idx: int, ready_t: float):
+        if self.tracer.on:
+            self._open_turn(conv.cid, idx, ready_t)
         binding = self._slots.get(conv.cid)
         if binding is None or not self.states[binding[0]].alive:
             # the tool returned to a dead binding (replica failed during
@@ -904,8 +1044,13 @@ class EngineServer(Runtime):
             # slot is already held, so no admission is involved
             start = max(ready_t, self.clock[node_id])
             self.sessions[conv.cid].transition(PREFILLING, start)
-            next_tok, dt = node.append_prefill(slot, tokens)
+            with self._call("server.append", conv.cid, node_id) as sp:
+                next_tok, dt = node.append_prefill(slot, tokens)
             dt = self._stretched(node_id, dt)
+            if sp is not None:
+                self._span("server.wait_replica", conv.cid, ready_t, start,
+                           node_id)
+                sp.close(start, start + dt, len=len(tokens), prev=ctx)
             self.clock[node_id] = start + dt
             self.states[node_id].active_kv_tokens += len(tokens)
             self._begin_decode(conv, idx, int(next_tok), start + dt,
@@ -938,10 +1083,18 @@ class EngineServer(Runtime):
         rst.used_slots += 1
         remote.kv.import_slot(rslot, pkg)
         rst.active_kv_tokens += pkg["length"]
-        t0 = max(ready_t, self.clock[remote_id]) + nbytes / self.link_bw
+        freed = max(ready_t, self.clock[remote_id])
+        t0 = freed + nbytes / self.link_bw
         self.sessions[conv.cid].transition(PREFILLING, t0)
-        next_tok, dt = remote.append_prefill(rslot, tokens)
+        with self._call("server.append", conv.cid, remote_id) as sp:
+            next_tok, dt = remote.append_prefill(rslot, tokens)
         dt = self._stretched(remote_id, dt)
+        if sp is not None:
+            self._span("server.wait_replica", conv.cid, ready_t, freed,
+                       remote_id)
+            self._span("server.transfer", conv.cid, freed, t0, remote_id,
+                       nbytes=nbytes)
+            sp.close(t0, t0 + dt, len=len(tokens), prev=pkg["length"])
         # the append landed in the remote slot: mirror it before the release
         # below subtracts the slot's full (grown) length
         rst.active_kv_tokens += len(tokens)
@@ -954,6 +1107,9 @@ class EngineServer(Runtime):
         self.transfer_bytes += nbytes + nbytes2
         self.n_transfers += 2
         done = t0 + dt + nbytes2 / self.link_bw
+        if sp is not None:
+            self._span("server.transfer", conv.cid, t0 + dt, done, node_id,
+                       nbytes=nbytes2)
         self.clock[remote_id] = t0 + dt
         self.states[node_id].active_kv_tokens += len(tokens)
         self._pump(remote_id, self._now)
@@ -1050,6 +1206,8 @@ class EngineServer(Runtime):
             if sess.state == DECODING:
                 victims.append((self._convs[cid], sess.turn_idx,
                                 self._turn_arrival.get(cid, self._now)))
+                if self.tracer.on:
+                    self._joined(cid, self._now, node_id, interrupted=True)
             else:
                 # a TOOL_WAIT session's binding dies WITH the node: sever it
                 # now so a later revival (recover_replica) can't make the
@@ -1115,6 +1273,8 @@ class EngineServer(Runtime):
         sess.node_id = None
         sess.turn_idx = turn_idx
         sess.transition(QUEUED, self._now, force=True)
+        if self.tracer.on:
+            self._open_turn(cid, turn_idx, arrival_t)
         ctx = self._journal_context(conv, turn_idx)
         self.log.append(
             f"t={self._now:.3f} recovering cid {cid} at turn {turn_idx}: "
@@ -1172,9 +1332,14 @@ class EngineServer(Runtime):
         # did (the journaled ctx opens with it), so the rebuilt stream is
         # byte-identical to the failure-free run and the healthy node's
         # pool serves/repopulates the preamble exactly like a fresh arrival
-        next_tok, dt = node.prefill_conversation(
-            slot, ctx, fe, prefix_len=self._prefix_split(conv, node))
+        with self._call("server.prefill", conv.cid, node_id) as sp:
+            next_tok, dt = node.prefill_conversation(
+                slot, ctx, fe, prefix_len=self._prefix_split(conv, node))
         dt = self._stretched(node_id, dt)
+        if sp is not None:
+            self._span("server.wait_replica", conv.cid, self._now, start,
+                       node_id)
+            sp.close(start, start + dt, len=len(ctx), replay=True)
         self._sync_pool_state(node_id)
         done_t = start + dt
         self.clock[node_id] = done_t
