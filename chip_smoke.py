@@ -28,12 +28,15 @@ Phases, each raising on failure:
      source started together, with the seconds and `-Xptxas -v`, and the
      count of tensor-core (`HMMA`) instructions in K2's SASS, which must
      not be 0;
-  3. kernels: K1 (flash-decode) and K2 (flash-prefill) at the qwen path's
-     shapes, K3 (WKV6) at the rwkv6 path's, K4 (RG-LRU scan) at the
-     recurrentgemma path's, against their plain versions in fp32 (TF32 off)
-     and with bf16 inputs, with kernel, plain and library (SDPA for K1/K2,
-     timed only; none for K3 and K4) milliseconds from CUDA events after a
-     warm-up (the median of five windows), the kernel's and the library's
+  3. kernels: K1 (flash-decode), K2 (flash-prefill) and K2's append
+     instance (bf16, within 1% of the largest output of its plain version
+     in fp32, on inputs where a fault moves an output by O(1); SDPA on the
+     live keys its yardstick) at the qwen path's shapes, K3 (WKV6) at the
+     rwkv6 path's, K4 (RG-LRU scan) at the recurrentgemma path's, against
+     their plain versions in fp32 (TF32 off) and with bf16 inputs, with
+     kernel, plain and library (SDPA for K1/K2, timed only; none for K3
+     and K4) milliseconds from CUDA events after a warm-up (the median of
+     five windows), the kernel's and the library's
      device time per call (`device_ms`: 20 or more calls captured in one
      CUDA graph and replayed between events, the median of five replays,
      the calls cycling over enough copies of the inputs that each reads
@@ -324,6 +327,9 @@ HBM_BYTES_S = 3.35e12          # H100 SXM HBM3
 L2_BYTES = 50 * 2**20          # H100 SXM L2
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # fp32 CUDA cores; bf16 dense tensor
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+# K2's append instance: max|err| over max|plain| against the fp32 plain
+# version (bf16 output: at most 1/256 of an output; bf16 P: 1/512)
+APPEND_RTOL = 1e-2
 LOGIT_TOL = 1e-3               # fp32 full-width logits, cuda vs torch impl
 # K3 vs its plain version, relative to max(1, max|plain|): both widen bf16
 # inputs exactly to fp32 and accumulate in fp32, so only the order of the
@@ -584,6 +590,80 @@ def check_prefill(torch, dtype, B, S, H, Hkv, D, window, seed=0):
                    bound_ms(nbytes, flops, dtype))
 
 
+def append_inputs(torch, lens, S, P, H, Hkv, D, seed=0):
+    """bf16 inputs of K2's append instance on which its faults show, as in
+    tests/test_torch_gpu.py: q at 8 times the keys' scale, so a query's
+    scores spread by ~3 and its output lies near one v row, O(1); at each
+    live length L, row L - 1 made the best key of query 0's first head and
+    row L (where the buffer has one) that of the last query's last head, so
+    a row too few or too many moves an output by O(1)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    rnd = lambda *s: (torch.randn(*s, generator=g, device="cuda") * 0.6).to(torch.bfloat16)  # noqa: E731
+    B = len(lens)
+    q = rnd(B, S, H, D) * 8
+    pk, pv = rnd(B, P, Hkv, D), rnd(B, P, Hkv, D)
+    kn, vn = rnd(B, S, Hkv, D), rnd(B, S, Hkv, D)
+    gamma = 1.3 / math.sqrt(D)  # a score of ~30 against the spread's ~3
+    for b, L in enumerate(lens):
+        if L >= 1:
+            pk[b, L - 1, 0] = gamma * q[b, 0, 0]
+        if L < P:
+            pk[b, L, Hkv - 1] = gamma * q[b, S - 1, H - 1]
+    return q, pk, pv, kn, vn
+
+
+def check_append(torch, S, live, P, H, Hkv, D, seed=0):
+    """K2's append instance (bf16) at one shape: S new tokens on a prefix
+    buffer of P rows, `live` of them live, held within APPEND_RTOL of the
+    largest output against the plain version in fp32 on the same bf16
+    inputs (`append_inputs`). Returns the kernel's record (`_record`) with
+    that relative error, and the error of the path before the kernel (the
+    plain version in bf16: fp32 chunks, P·V in fp32) against the same fp32
+    plain; the bound counts the live rows and the causal new pairs."""
+    import torch.nn.functional as F
+    from repro_torch.kernels.prefill_attention import (append_attention_plain,
+                                                       flash_append_attention)
+    q, pk, pv, kn, vn = append_inputs(torch, (live,), S, P, H, Hkv, D, seed)
+    lens = torch.tensor([live], dtype=torch.int32, device="cuda")
+    got = flash_append_attention(q, pk, pv, kn, vn, lens)
+    want = append_attention_plain(q.float(), pk.float(), pv.float(),
+                                  kn.float(), vn.float(), lens)
+    before = append_attention_plain(q, pk, pv, kn, vn, lens)
+    torch.cuda.synchronize()
+    err, scale = max_err(got, want), float(want.abs().max())
+    if not err < APPEND_RTOL * scale:
+        raise AssertionError(f"K2 append S={S} live={live} P={P}: max|err| "
+                             f"{err} >= {APPEND_RTOL} x max|plain| {scale}")
+    nbytes = 2 * (2 * (live + S) * Hkv * D + 2 * S * H * D)
+    flops = 4.0 * H * D * S * (live + (S + 1) / 2)
+
+    def kern(q, pk, pv, kn, vn):
+        return lambda: flash_append_attention(q, pk, pv, kn, vn, lens)
+    inputs = (q, pk, pv, kn, vn)
+    k_ms, k_dev = cuda_ms(kern(*inputs)), device_ms(kern, inputs, nbytes)
+    p_ms = cuda_ms(lambda: append_attention_plain(q, pk, pv, kn, vn, lens),
+                   iters=5)
+    # yardstick: one SDPA call on the live prefix and the new keys, KV
+    # heads expanded before timing, a boolean causal mask on the new keys
+    G = H // Hkv
+    qt = q.transpose(1, 2)
+    kt, vt = (torch.cat([p[:, :live], n], 1).repeat_interleave(G, 2)
+              .transpose(1, 2) for p, n in ((pk, kn), (pv, vn)))
+    i = torch.arange(S, device="cuda")
+    mask = torch.cat([torch.ones(S, live, dtype=torch.bool, device="cuda"),
+                      i[None] <= i[:, None]], 1)
+
+    def sdpa(qt, kt, vt):
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      attn_mask=mask)
+    rec = _record(err, k_ms, k_dev, p_ms, cuda_ms(sdpa(qt, kt, vt)),
+                  device_ms(sdpa, (qt, kt, vt), nbytes),
+                  bound_ms(nbytes, flops, "bfloat16"))
+    rec.update(max_rel_err=err / scale, max_abs_plain=scale,
+               before_max_abs_err=max_err(before, want))
+    return rec
+
+
 def _k1_grid(B, Hkv, S, D, kv_itemsize=2, G=1) -> str:
     """The blocks K1 launches at this shape, from the wrapper's planner."""
     from repro_torch.kernels import decode_attention as k1
@@ -606,7 +686,7 @@ def phase_kernels(torch, cfg):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log("phase 3: kernels vs plain versions (TF32 off; fp32 tol 2e-5, "
-        "bf16 tol 2e-2)")
+        "bf16 tol 2e-2; K2's append instance within 1e-2 of max|plain|)")
     recs = {}
     # decode: 16 slots of a max_ctx=1024 buffer read through ctx buckets;
     # lengths include 1, exactly S, and an idle slot longer than S
@@ -627,6 +707,18 @@ def phase_kernels(torch, cfg):
                 f"max|err| {r['max_abs_err']:.3e}  {_times(r)}")
             if dtype == "bfloat16" and S == 512 and not window:
                 recs["prefill_attention"] = r
+    # K2's append instance: the served shape (a 512-token bucket on a
+    # 16,384-row prefix), a prefix short of its bucket, a short append
+    for S, live, P in ((512, 16384, 16384), (256, 3000, 4096),
+                       (15, 777, 1024)):
+        r = check_append(torch, S, live, P, H, Hkv, D)
+        log(f"  K2 append bfloat16 S={S:4d} live={live:5d} P={P:5d}: "
+            f"max|err| {r['max_abs_err']:.3e} ({r['max_rel_err']:.2e} of "
+            f"max|plain| {r['max_abs_plain']:.3f}; bf16 plain, the path "
+            f"before the kernel: {r['before_max_abs_err']:.3e})  "
+            f"{_times(r)}")
+        if S == 512:
+            recs["append_attention"] = r
     return recs
 
 
@@ -867,7 +959,8 @@ def impl_parity(torch, cfg, params, device, n_decode=8):
               for impl in ("cuda", "torch")}
     counts = ops.launch_counts()
     want = {"decode_attention": cfg.n_layers,
-            "prefill_attention": cfg.n_layers, "wkv6": 0, "rglru": 0}
+            "prefill_attention": cfg.n_layers, "append_attention": 0,
+            "wkv6": 0, "rglru": 0}
     if counts != want or seen != [cfg.kv_torch_dtype] * cfg.n_layers:
         raise AssertionError(f"one prefill and one decode step launched "
                              f"{counts}, not {want}; K1 was handed "
@@ -1003,8 +1096,11 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
                     absent=(), **serve_kw):
     """Serve the main path with every launch count set to 0 just before
     and read just after; fail unless each kernel of `path_kernels` ran and
-    each of `absent` did not. Returns (this path's counts, the run: summary,
-    server, gateway, streams, remote turns, launches)."""
+    each of `absent` did not. Where K2's append instance is on the path, it
+    launches once a global layer for every append and pool hit (the
+    replicas' (append-)prefills against a slot's prefix, graphed or eager).
+    Returns (this path's counts, the run: summary, server, gateway,
+    streams, remote turns, launches, appends)."""
     import gc
 
     from repro_torch.kernels import ops
@@ -1013,7 +1109,8 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
     torch.cuda.reset_peak_memory_stats()
     ops.reset_launch_counts()
     t0 = time.perf_counter()
-    s, srv, reps, gw = serve_main_path(cfg, params, **serve_kw)
+    with counting_appends() as appends:
+        s, srv, reps, gw = serve_main_path(cfg, params, **serve_kw)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = ops.launch_counts()
@@ -1026,6 +1123,12 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
         if launches[name] != 0:
             raise AssertionError(f"kernel {name} launched {launches[name]} "
                                  f"times on the {cfg.name} path")
+    if ("append_attention" in path_kernels
+            and launches["append_attention"] != n_global(cfg) * appends["n"]):
+        raise AssertionError(f"K2's append instance launched "
+                             f"{launches['append_attention']} times for "
+                             f"{appends['n']} appends and pool hits of "
+                             f"{n_global(cfg)} global layers")
     pre_tok = sum(r.n_prefill_tokens for r in reps)
     pre_s = sum(r.prefill_s for r in reps)
     dec_tok = sum(r.n_decode_tokens for r in reps)
@@ -1037,8 +1140,9 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
               else "1 prefiller + 2 decoders")
     log(f"  {label}{layout}, {s['n_conversations']} "
         f"conversations, kv_transfers_per_conv "
-        f"{s['kv_transfers_per_conv']}, remote turns {remote}, wall "
-        f"{wall:.2f} s, launches {launches}")
+        f"{s['kv_transfers_per_conv']}, remote turns {remote}, appends "
+        f"and pool hits {appends['n']}, wall {wall:.2f} s, launches "
+        f"{launches}")
     progs = [p for r in reps for p in r.programs().values()]
     log(f"  [{card}] ttfet_p95 {s['ttfet_p95']:.4f} s, last_tbt_gmean "
         f"{s['last_tbt_gmean'] * 1e3:.3f} ms, last_tbt_p95 "
@@ -1054,7 +1158,7 @@ def serve_and_count(torch, cfg, params, card, path_kernels, label,
         f"pools {sum(r.graph_pool_bytes() for r in reps) / 2**20:.1f} MiB")
     streams = {k: [int(t) for t in v] for k, v in srv.sampled_tokens.items()}
     run = dict(summary=s, srv=srv, gw=gw, streams=streams, remote=remote,
-               launches=dict(launches))
+               launches=dict(launches), appends=appends["n"])
     return {n: launches[n] for n in path_kernels}, run
 
 
@@ -1072,8 +1176,7 @@ def phase_serve(torch, cfg, device, card):
     log("  (a) golden-trace summary equals tests/golden/"
         "decode_golden_trace.json")
     launches, run = serve_and_count(torch, cfg, params, card,
-                                    ("decode_attention", "prefill_attention"),
-                                    "(b) ")
+                                    BF16_PATH_KERNELS, "(b) ")
     del params
     torch.cuda.empty_cache()
     # phase 10 compares against this run; the replicas and their caches go
@@ -1511,6 +1614,9 @@ def phase_prefill_reference(torch, cfg, params):
 # --------------------------------------------------------------------------- #
 COMPARED = ("conserve", "ampd", "full_disagg", "collocated")
 PATH_KERNELS = ("decode_attention", "prefill_attention")
+# qwen's bf16 runs attend their appends and pool hits in K2's append
+# instance; its fp32 runs and an int8 cache keep them in torch ops
+BF16_PATH_KERNELS = PATH_KERNELS + ("append_attention",)
 REJOIN_AFTER_S = 0.5  # logical seconds from the kill to recover_replica
 
 
@@ -1663,7 +1769,7 @@ def phase_compare(torch, cfg, device, card, conserve):
     runs = {"conserve": conserve}
     for sched in COMPARED[1:]:
         launches[sched], run = serve_and_count(
-            torch, cfg, params, card, PATH_KERNELS, f"(a) {sched}: ",
+            torch, cfg, params, card, BF16_PATH_KERNELS, f"(a) {sched}: ",
             scheduler=sched)
         n_eq, n = count_equal(conserve["streams"], run["streams"])
         log(f"    {n_eq} of {n} (cid, turn) streams equal to conserve's "
@@ -1698,13 +1804,15 @@ def phase_compare(torch, cfg, device, card, conserve):
     cfg32 = cfg.scaled(dtype="float32")
     params = build_model(cfg32).init(0, device)
     launches["fp32"], base = serve_and_count(
-        torch, cfg32, params, card, PATH_KERNELS, "(b) fp32 failure-free: ")
+        torch, cfg32, params, card, PATH_KERNELS, "(b) fp32 failure-free: ",
+        absent=("append_attention",))
     base = base["streams"]
     for label, rejoin in (("killed", None), ("killed + rejoin",
                                              REJOIN_AFTER_S)):
         cls = kill_when_decoding(rejoin)
         _, run = serve_and_count(torch, cfg32, params, card, PATH_KERNELS,
-                                 f"(b) fp32 {label}: ", server_cls=cls)
+                                 f"(b) fp32 {label}: ", server_cls=cls,
+                                 absent=("append_attention",))
         srv = run["srv"]
         if srv.killed is None:
             raise AssertionError("decoder 1 never decoded a turn >= 1")
@@ -1753,7 +1861,7 @@ def phase_compare(torch, cfg, device, card, conserve):
 
     # (c) bf16, live through the gateway with a decoder failure
     params = build_model(cfg).init(0, device)
-    _, run = serve_and_count(torch, cfg, params, card, PATH_KERNELS,
+    _, run = serve_and_count(torch, cfg, params, card, BF16_PATH_KERNELS,
                              "(c) live, killed: ", live=True,
                              server_cls=kill_when_decoding())
     srv, gw = run["srv"], run["gw"]
@@ -1899,7 +2007,8 @@ def dense_fp32_parity(torch, cfg, device, card, n_decode=8, front=None):
         routing_report(cfg, routes)
     counts = ops.launch_counts()
     want = {"decode_attention": n_global(cfg),
-            "prefill_attention": n_global(cfg), "wkv6": 0, "rglru": 0}
+            "prefill_attention": n_global(cfg), "append_attention": 0,
+            "wkv6": 0, "rglru": 0}
     if counts != want:
         raise AssertionError(f"one prefill and one decode step launched "
                              f"{counts}, not {want}")
@@ -2422,8 +2531,8 @@ def encdec_fp32(torch, cfg, device, card, n_decode=8):
           for impl in ("cuda", "torch")}
     counts = ops.launch_counts()
     L = cfg.n_layers
-    want = {"decode_attention": L, "prefill_attention": L, "wkv6": 0,
-            "rglru": 0}
+    want = {"decode_attention": L, "prefill_attention": L,
+            "append_attention": 0, "wkv6": 0, "rglru": 0}
     if counts != want:
         raise AssertionError(f"one prefill and one decode step launched "
                              f"{counts}, not {want}")
@@ -3162,6 +3271,25 @@ def fleet_trace(n):
 
 
 @contextlib.contextmanager
+def counting_appends():
+    """Count the replicas' appends and pool hits: the (append-)prefills
+    against a slot's prefix (`ReplicaEngine._run_prefill` with a ctx),
+    through a graph or eagerly."""
+    from repro_torch.engine import ReplicaEngine
+    orig = ReplicaEngine._run_prefill
+    state = {"n": 0}
+
+    def counted(self, prog, host, ctx, *args, **kw):
+        state["n"] += ctx is not None
+        return orig(self, prog, host, ctx, *args, **kw)
+    ReplicaEngine._run_prefill = counted
+    try:
+        yield state
+    finally:
+        ReplicaEngine._run_prefill = orig
+
+
+@contextlib.contextmanager
 def counting_turn1_prefills():
     """Count the server's turn-1 prefills, arrivals and replays: the calls
     of `ReplicaEngine.prefill_conversation` from outside it (a miss calls
@@ -3339,7 +3467,8 @@ def int8_serve(torch, cfg, device, card, bf16_streams, steps=False):
     with counting_replays() as tally:
         launches, run = serve_and_count(
             torch, cfg, params, card, PATH_KERNELS, "(c) ",
-            absent=("wkv6", "rglru"), n_conversations=n_conv)
+            absent=("append_attention", "wkv6", "rglru"),
+            n_conversations=n_conv)
     if cfg.kv_bytes_per_token() != 57_344:
         raise AssertionError(f"{cfg.kv_bytes_per_token()} KV bytes a token "
                              "with an int8 cache, not 57,344")
@@ -3523,7 +3652,7 @@ def rotation_sweep(torch, cfg, device, card, values):
         f"trace, rotation_min_chunk in {values}")
     params = build_model(cfg).init(0, device)
     for v in values:
-        serve_and_count(torch, cfg, params, card, PATH_KERNELS,
+        serve_and_count(torch, cfg, params, card, BF16_PATH_KERNELS,
                         f"rotation_min_chunk {v}: ",
                         server_kw={"rotation_min_chunk": v})
     del params
@@ -3656,8 +3785,8 @@ def main(argv=None) -> int:
     if args.phase18:
         from repro_torch.models import build_model
         params = build_model(cfg).init(0, device)
-        _, bf16 = serve_and_count(torch, cfg, params, card, PATH_KERNELS,
-                                  "(5b, bf16 cache) ")
+        _, bf16 = serve_and_count(torch, cfg, params, card,
+                                  BF16_PATH_KERNELS, "(5b, bf16 cache) ")
         del params
         torch.cuda.empty_cache()
         _, int8 = phase_int8(torch, cfg, device, card, bf16["streams"],
@@ -3715,6 +3844,18 @@ def main(argv=None) -> int:
         k["phase12"] = dense[k["name"]]  # and at each dense model's heads
         k["phase13"] = moe[k["name"]]  # and at the MoE models' (G = 5)
         k["phase14"] = front[k["name"]]  # whisper's (G = 1), internvl2's
+    # K2's append instance, beside K2: it replaces no Pallas kernel (the
+    # reference attends an append in jnp ops); its launches in phase 5b's
+    # served run (a global layer's per append and pool hit) and in phase
+    # 10's, 0 in the fp32 ones
+    kernels.insert(2, dict(
+        name="append_attention", route="cuda",
+        source=f"{csrc}prefill_attention.cu", replaces=None,
+        launches=launches["append_attention"],
+        appends=conserve_run["appends"],
+        phase10_launches={run: c.get("append_attention", 0)
+                          for run, c in compared.items()},
+        **recs["append_attention"]))
     # K1 reading an int8 cache: its bf16 record at the 256 bucket and its
     # served launches
     kernels[0]["phase18"] = dict(

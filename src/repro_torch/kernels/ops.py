@@ -22,13 +22,17 @@ from typing import Dict, Optional
 import torch
 
 from .decode_attention import decode_attention_plain, flash_decode_attention
-from .prefill_attention import flash_prefill_attention, prefill_attention_plain
+from .prefill_attention import (append_attention_plain,
+                                flash_append_attention,
+                                flash_prefill_attention,
+                                prefill_attention_plain)
 from .rglru import rglru_cuda, rglru_plain
 from .wkv6 import wkv6_cuda, wkv6_plain
 
 IMPLS = ("cuda", "torch")
 KERNELS = {"decode_attention": flash_decode_attention,
            "prefill_attention": flash_prefill_attention,
+           "append_attention": flash_append_attention,
            "wkv6": wkv6_cuda,
            "rglru": rglru_cuda}
 
@@ -62,6 +66,16 @@ def prefill_attention(q, k, v, *, window: int = 0, impl: str = "cuda"):
         _refuse_grad("prefill_attention", q, k, v)
         return flash_prefill_attention(q, k, v, window=window)
     return prefill_attention_plain(q, k, v, window=window)
+
+
+def append_attention(q, k, v, k_new, v_new, kv_lens, *, impl: str = "cuda"):
+    """q: (B, S, H, D); the prefix k, v: (B, P, Hkv, D), rows at or past
+    kv_lens (B,) masked; the new k_new, v_new: (B, S, Hkv, D), causal — an
+    append's attention (K2's append instance, bf16)."""
+    if _use_kernel(q, impl):
+        _refuse_grad("append_attention", q, k, v, k_new, v_new)
+        return flash_append_attention(q, k, v, k_new, v_new, kv_lens)
+    return append_attention_plain(q, k, v, k_new, v_new, kv_lens)
 
 
 def decode_attention(q, k, v, lengths=None, *, impl: str = "cuda",

@@ -12,9 +12,11 @@ Conventions follow the JAX package's `models/attention.py`: q, k, v are
 it returns the new token's K/V and the cache manager appends it. A layer's
 kind picks its RoPE theta (`rope_theta_local` for a local layer) and its
 window (`cfg.window` for a local layer, 0 for a global one). The kernels are
-reached as in the reference: K2 only for a fresh global prefill, K1 only
-for a global decode; a local layer and an MLA layer run torch ops under
-both impls (the reference has no kernel there either).
+reached as in the reference, K2 for a fresh global prefill and K1 for a
+global decode, and besides K2's append instance for a bf16 global append
+against a slot's prefix (the reference attends those in jnp ops); a local
+layer and an MLA layer run torch ops under both impls (the reference has no
+kernel there either).
 
 A quantized cache (`kv_cache_dtype`: int8 standing for int8 x
 `kv_quant_scale`) follows one rule. Every write into it goes through
@@ -35,14 +37,14 @@ import torch
 from torch import nn
 
 from repro_torch.kernels.decode_attention import dequantize
+from repro_torch.kernels.ref import (NEG_INF, PAD_POS, PREFIX_KV_CHUNK,
+                                     online_attention, prefix_attention)
+from repro_torch.kernels.ref import repeat_kv as _repeat_kv
 
 from .config import ATTN_GLOBAL, ATTN_LOCAL, ModelConfig
 from .layers import apply_rope, param, rope_freqs
 
-NEG_INF = -1e30
 ATTN_IMPLS = ("torch", "cuda")
-PREFIX_KV_CHUNK = 512  # key chunk of an (append-)prefill against a prefix
-PAD_POS = 2**31 - 1  # the position of a key row that only pads a chunk
 
 
 class Attention(nn.Module):
@@ -106,95 +108,6 @@ def _qk_norm(x, scale, eps=1e-6):
     xf = x.float()
     xf = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
     return (xf * (1.0 + scale.float())).to(x.dtype)
-
-
-def _repeat_kv(k, n_heads):
-    """(B, T, Hkv, D) -> (B, T, H, D)."""
-    reps = n_heads // k.shape[2]
-    if reps == 1:
-        return k
-    return k.repeat_interleave(reps, dim=2)
-
-
-# --------------------------------------------------------------------------- #
-# Blocked online-softmax attention (the flash oracle)
-# --------------------------------------------------------------------------- #
-def online_attention(q, k, v, q_pos, kv_pos, *, causal: bool = True,
-                     window: int = 0, q_chunk: int = 256, kv_chunk: int = 512,
-                     kv_lens=None, kv_valid=None):
-    """q: (B,Sq,H,D); k,v: (B,Skv,H,D); q_pos: (Sq,), kv_pos: (Skv,) int.
-
-    Loops over Q chunks and, inside, over KV chunks with an online softmax —
-    structurally the flash algorithm, bounding temporaries to
-    (B, H, q_chunk, kv_chunk). `kv_lens` (B,) optionally masks per-batch
-    ragged valid lengths; `kv_valid` (B, Skv) bool is the general per-entry
-    validity mask (engine slot buffers).
-
-    The keys are padded with zero rows to whole chunks, at position
-    2**31 - 1. A causal mask drops them; without one (`causal=False`: the
-    encoder and cross-attention) the reference lets each add exp(-m) to the
-    softmax's denominator whenever Skv is not a multiple of kv_chunk — 36
-    phantom keys in each of whisper's 1500-frame attentions (ROADMAP queue
-    3, F17). Here they are masked by their position."""
-    B, Sq, H, D = q.shape
-    Skv = k.shape[1]
-    dev = q.device
-    scale = 1.0 / math.sqrt(D)
-    q_chunk = min(q_chunk, Sq)
-    kv_chunk = min(kv_chunk, Skv)
-    pq = (-Sq) % q_chunk
-    pk = (-Skv) % kv_chunk
-    q_pos = q_pos.to(dev)
-    kv_pos = kv_pos.to(dev)
-    if pq:
-        q = torch.nn.functional.pad(q, (0, 0, 0, 0, 0, pq))
-        q_pos = torch.cat([q_pos, q_pos.new_full((pq,), -1)])
-    if pk:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pk))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pk))
-        kv_pos = torch.cat([kv_pos, kv_pos.new_full((pk,), PAD_POS)])
-        if kv_valid is not None:
-            kv_valid = torch.nn.functional.pad(kv_valid, (0, pk))
-    outs = []
-    for qs in range(0, Sq + pq, q_chunk):
-        q_blk = q[:, qs:qs + q_chunk]
-        qp = q_pos[qs:qs + q_chunk]
-        m = torch.full((B, H, q_chunk), NEG_INF, dtype=torch.float32,
-                       device=dev)
-        l = torch.zeros((B, H, q_chunk), dtype=torch.float32, device=dev)
-        acc = torch.zeros((B, H, q_chunk, D), dtype=torch.float32,
-                          device=dev)
-        for ks in range(0, Skv + pk, kv_chunk):
-            k_blk = k[:, ks:ks + kv_chunk]
-            v_blk = v[:, ks:ks + kv_chunk]
-            kp = kv_pos[ks:ks + kv_chunk]
-            s = torch.einsum("bqhd,bkhd->bhqk", q_blk.float(),
-                             k_blk.float()) * scale
-            ok = (kp[None, :] >= 0) & (qp[:, None] >= 0)
-            if causal:
-                ok &= kp[None, :] <= qp[:, None]
-            else:  # F17: the pad keys
-                ok &= kp[None, :] != PAD_POS
-            if window:
-                ok &= kp[None, :] > qp[:, None] - window
-            mask = ok[None, None]
-            if kv_lens is not None:
-                mask = mask & (kp[None, None, None, :]
-                               < kv_lens.to(dev)[:, None, None, None])
-            if kv_valid is not None:
-                mask = mask & kv_valid[:, ks:ks + kv_chunk][:, None, None, :]
-            s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhqk,bkhd->bhqd", p, v_blk.float())
-            m = m_new
-        out = acc / torch.clamp(l[..., None], min=1e-20)
-        outs.append(out.transpose(1, 2))  # (B, Cq, H, D)
-    out = torch.cat(outs, dim=1)
-    return out[:, :Sq].to(q.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -483,8 +396,14 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
     prefills take the reference's branches in its order: `flash_attention`
     under `cfg.flash_vjp` (windows included), then `local_attention` for a
     local layer, then the online-softmax path (one chunk under
-    `cfg.attn_block_full`). Append-prefill prefix reads and kv_lens-masked
-    cases take the online-softmax path with the layer's window."""
+    `cfg.attn_block_full`). An append against an engine slot's prefix
+    (prefix_start given, kv_lens masking it, window 0) whose q, new rows
+    and prefix are all bf16 goes under "cuda" to K2's append instance
+    (`ops.append_attention`); the slot's live rows precede the new tokens
+    (kv_lens <= start_pos - prefix_start), so only kv_lens masks the
+    prefix. The other prefix reads (an int8 or fp32 prefix, a local layer,
+    a contiguous history) and kv_lens-masked cases take the online-softmax
+    path (`prefix_attention`) with the layer's window."""
     _check_impl(attention_impl)
     B, S, _ = x.shape
     q, k, v = _proj_qkv(attn, cfg, x)
@@ -495,37 +414,26 @@ def gqa_prefill(attn: Attention, cfg: ModelConfig, kind: str, x,
     new_cache = {"k": k, "v": v}
 
     if prefix_kv is not None:
-        # The prefix is padded with masked rows to whole key chunks, so the
-        # new tokens' keys always start a chunk: a prefix trimmed to its ctx
-        # bucket and the whole max_ctx buffer then run the same chunks, the
-        # buffer's extra ones fully masked (exact no-ops), and give the same
-        # bytes on any device, not only where a sum's order does not depend
-        # on its length.
-        P = prefix_kv["k"].shape[1]
-        pad = (-P) % PREFIX_KV_CHUNK
-        pstart = (start_pos - P) if prefix_start is None else prefix_start
-        kv_pos = torch.cat([pstart + torch.arange(P, device=x.device),
-                            pos.new_full((pad,), PAD_POS), pos])
-
-        def keys(prefix, new):
+        pk, pv = prefix_kv["k"], prefix_kv["v"]
+        # The one routing point of K2's append instance. The kernel sees no
+        # positions: it masks the prefix by kv_lens alone and takes every
+        # live row as earlier than every new token. That holds because the
+        # engine's appends and pool hits pass kv_lens = start_pos with
+        # prefix_start = 0 (kv_lens <= start_pos - prefix_start); both may
+        # be device tensors inside a graph, so it is not checked here.
+        if (attention_impl == "cuda" and window == 0 and kv_lens is not None
+                and prefix_start is not None
+                and all(t.dtype == torch.bfloat16 for t in (q, k, pk))):
+            from repro_torch.kernels import ops
+            out = ops.append_attention(q, pk, pv, k, v, kv_lens, impl="cuda")
+        else:
             # a quantized prefix is read dequantized, as decode reads it
             # (the reference concatenates its int8 rows as they are, F24)
-            prefix = torch.nn.functional.pad(
-                _repeat_kv(dequantize_kv(prefix, cfg), cfg.n_heads),
-                (0, 0, 0, 0, 0, pad))
-            return torch.cat([prefix, _repeat_kv(new, cfg.n_heads)], dim=1)
-        k_all, v_all = keys(prefix_kv["k"], k), keys(prefix_kv["v"], v)
-        kv_valid = None
-        if kv_lens is not None:
-            # padding lives only in the prefix region; new tokens are valid
-            kv_valid = torch.cat(
-                [torch.arange(P + pad, device=x.device)[None, :]
-                 < kv_lens.to(x.device)[:, None],
-                 torch.ones((B, S), dtype=torch.bool, device=x.device)],
-                dim=1)
-        out = online_attention(q, k_all, v_all, pos, kv_pos, causal=True,
-                               window=window, kv_valid=kv_valid,
-                               kv_chunk=PREFIX_KV_CHUNK)
+            pstart = ((start_pos - pk.shape[1]) if prefix_start is None
+                      else prefix_start)
+            out = prefix_attention(q, dequantize_kv(pk, cfg),
+                                   dequantize_kv(pv, cfg), k, v, pos, pstart,
+                                   kv_lens, window=window)
     elif attention_impl == "cuda" and kv_lens is None and window == 0:
         from repro_torch.kernels import ops
         out = ops.prefill_attention(q, k, v, impl="cuda")

@@ -24,7 +24,18 @@ qwen3-0.6b's heads; in bf16 it runs on the tensor cores (`mma.sync` fed by
 `ldmatrix`, K/V tiles streamed by `cp.async`), so its cases cover ragged S
 around the 64-row tiles, window 96, G in {1, 2, 6, 8} and D in {16, 64,
 128, 160, 240} (D = 240 in 32-key tiles; not done yet: `wgmma` and TMA);
-fp32 keeps the CUDA-core kernel. K3
+fp32 keeps the CUDA-core kernel. K2's append instance (an append's
+queries against the slot's prefix, rows past kv_lens masked, then the new
+keys causally; bf16, G query heads packed as rows of one tile, the prefix
+cut into ranges of APPEND_SPLIT rows merged by a combine pass) is held
+against its plain version in fp32 at every D and G in {1, 2, 5, 6}, at S
+of 1, 15 and 512, with live lengths 0, 1, 777, exactly one range and 1,500
+in one launch, and at the served length (512 on 16,000 rows), within 1% of
+the largest output, on inputs where a fault moves an output by O(1) (a
+peaked softmax, the rows at each live length the best keys of a query);
+a prefix gathered to its ctx bucket gives the bytes of the slot's view of
+the whole buffer, and a graph replay with the lengths changed equals the
+eager call. K3
 (`csrc/wkv6.cu`) is chunk-parallel: chunks of 8 tokens run at once, one
 warp each, the state is carried over them, and a block takes its chunks in
 passes; it is held against the step recurrence within 5e-5 of the
@@ -56,6 +67,8 @@ a graphed hit, an eager hit and a miss byte-identical, in bf16 the tokens
 equal; and on qwen3-0.6b the hit replays that one append graph, with no K2
 launch. A kernel launch whose input requires grad raises (no kernel has a
 backward), and the reduced model's training step launches no kernel."""
+import math
+
 import numpy as np
 import pytest
 
@@ -67,6 +80,7 @@ from repro_torch.kernels import ops  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, flash_decode_attention, plan_decode_splits)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
+    APPEND_SPLIT, HEAD_DIMS, append_attention_plain, flash_append_attention,
     flash_prefill_attention, prefill_attention_plain)
 from repro_torch.kernels.rglru import rglru_cuda, rglru_plain  # noqa: E402
 from repro_torch.kernels.wkv6 import wkv6_cuda, wkv6_plain  # noqa: E402
@@ -332,6 +346,133 @@ def test_cuda_prefill_kernel_matches_plain(cuda, dtype, S, H, Hkv, D, window):
     assert float((got.float() - want.float()).abs().max()) < TOLS[dtype]
 
 
+# K2's append instance: five sequences a launch, whose live prefix lengths
+# are 0, 1, one not a multiple of the 64-key tile, one exactly on a range
+# boundary and one across it, in a buffer of two ranges
+APPEND_LENS = (0, 1, 777, APPEND_SPLIT, 1500)
+APPEND_P = 2 * APPEND_SPLIT
+# max|kernel - plain| over max|plain|, the plain version in fp32 on the
+# kernel's bf16 inputs: rounding the output to bf16 costs at most 1/256 of
+# an output's size, rounding P to bf16 before P·V at most 1/512
+APPEND_RTOL = 1e-2
+
+
+def _append_inputs(dev, seed, lens, S, P, H, Hkv, D):
+    """bf16 inputs of K2's append instance on which its faults show. q is 8
+    times the keys' scale, so a query's scores spread by ~3 and its output
+    lies near one v row, O(1): a range skipped or the new keys dropped
+    moves the outputs whose best keys were there. At each sequence's live
+    length L, row L - 1 is made the best key of query 0's first head and
+    row L (where the buffer has one) that of the last query's last head, so
+    a row too few or too many moves an output by O(1)."""
+    B, G = len(lens), H // Hkv
+    q = _rand(dev, "bfloat16", seed, (B, S, H, D)) * 8
+    pk, pv, kn, vn = (_rand(dev, "bfloat16", seed + 1 + i, shape)
+                      for i, shape in enumerate([(B, P, Hkv, D)] * 2
+                                                + [(B, S, Hkv, D)] * 2))
+    gamma = 1.3 / math.sqrt(D)  # a score of ~30 against the spread's ~3
+    for b, L in enumerate(lens):
+        if L >= 1:
+            pk[b, L - 1, 0] = gamma * q[b, 0, 0]
+        if L < P:
+            pk[b, L, Hkv - 1] = gamma * q[b, S - 1, H - 1]
+    return q, pk, pv, kn, vn
+
+
+def _append_rel_err(got, q, pk, pv, kn, vn, lens):
+    """max|got - plain| / max|plain|, the plain version in fp32."""
+    want = append_attention_plain(q.float(), pk.float(), pv.float(),
+                                  kn.float(), vn.float(), lens)
+    return float((got.float() - want).abs().max() / want.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("S", [1, 15, 512])
+@pytest.mark.parametrize("D", HEAD_DIMS)
+@pytest.mark.parametrize("G", [1, 2, 5, 6])
+def test_cuda_append_kernel_matches_plain(cuda, G, D, S):
+    inputs = _append_inputs(cuda, 50, APPEND_LENS, S, APPEND_P, 2 * G, 2, D)
+    lens = torch.tensor(APPEND_LENS, dtype=torch.int32, device=cuda)
+    before = flash_append_attention.launches
+    got = ops.append_attention(*inputs, lens)
+    torch.cuda.synchronize()
+    assert flash_append_attention.launches == before + 1
+    assert _append_rel_err(got, *inputs, lens) < APPEND_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (48, 8, 128)])
+def test_cuda_append_kernel_matches_plain_at_the_served_length(cuda, H, Hkv,
+                                                               D):
+    """The served shape: 512 new tokens on 16,000 live rows of a 16,384-row
+    bucket, 16 ranges merged."""
+    inputs = _append_inputs(cuda, 55, (16000,), 512, 16384, H, Hkv, D)
+    lens = torch.tensor([16000], dtype=torch.int32, device=cuda)
+    got = flash_append_attention(*inputs, lens)
+    assert _append_rel_err(got, *inputs, lens) < APPEND_RTOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("H,Hkv,D", [(16, 8, 128), (48, 8, 128),
+                                     (16, 8, 240)])
+@pytest.mark.parametrize("live", [1500, 2048])
+def test_cuda_append_kernel_bucket_equals_whole_buffer(cuda, H, Hkv, D,
+                                                       live):
+    """A slot's prefix gathered to its ctx bucket (2048 rows) and the same
+    slot's view of the whole 8192-row buffer of four slots give the same
+    bytes, rows past the live length holding other values."""
+    q, _, _, kn, vn = _append_inputs(cuda, 60, (1,), 512, 1, H, Hkv, D)
+    buf_k, buf_v = (_rand(cuda, "bfloat16", i, (4, 8192, Hkv, D))
+                    for i in (61, 62))
+    lens = torch.tensor([live], dtype=torch.int32, device=cuda)
+    whole = flash_append_attention(q, buf_k[2:3], buf_v[2:3], kn, vn, lens)
+    bucket = flash_append_attention(q, buf_k[2:3, :2048].contiguous(),
+                                    buf_v[2:3, :2048].contiguous(), kn, vn,
+                                    lens)
+    torch.cuda.synchronize()
+    assert torch.equal(whole, bucket)
+
+
+@pytest.mark.gpu
+def test_cuda_append_kernel_graph_replay_equals_eager(cuda):
+    """The graph reads kv_lens on the device: replays with the lengths
+    rolled between them equal eager calls bit for bit."""
+    q, pk, pv, kn, vn = _append_inputs(cuda, 70, APPEND_LENS, 300,
+                                       APPEND_P, 16, 8, 128)
+    lens = torch.tensor(APPEND_LENS, dtype=torch.int32, device=cuda)
+    _graph_replay_equals_eager(
+        (q, pk, pv, kn, vn, lens),
+        lambda: (flash_append_attention(q, pk, pv, kn, vn, lens),))
+
+
+@pytest.mark.gpu
+def test_cuda_append_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q, pk, pv, kn, vn = _append_inputs(cuda, 80, (1,), 8, 64, 4, 2, 16)
+    one = torch.ones(1, dtype=torch.int32, device=cuda)
+    f32 = [t.float() for t in (q, pk, pv, kn, vn)]
+    with pytest.raises(ValueError, match="bfloat16"):
+        flash_append_attention(*f32, one)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_append_attention(q, pk, pv, kn, vn, one.cpu())
+    q48, p48, n48 = (torch.zeros(1, n, h, 48, device=cuda,
+                                 dtype=torch.bfloat16)
+                     for n, h in ((8, 4), (64, 2), (8, 2)))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_append_attention(q48, p48, p48, n48, n48, one)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_append_attention(q[:, :, :3].contiguous(), pk, pv, kn, vn, one)
+    with pytest.raises(ValueError, match="k_new"):
+        flash_append_attention(q, pk, pv, kn[:, :4], vn[:, :4], one)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_append_attention(q.transpose(1, 2).contiguous().transpose(1, 2),
+                               pk, pv, kn, vn, one)
+    with pytest.raises(ValueError, match="strides"):
+        flash_append_attention(q, pk.transpose(1, 2).contiguous()
+                               .transpose(1, 2), pv, kn, vn, one)
+    with pytest.raises(ValueError, match="kv_lens"):
+        flash_append_attention(q, pk, pv, kn, vn, one.repeat(2))
+
+
 @pytest.mark.gpu
 def test_cuda_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 4, 48, device=cuda)  # head_dim 48
@@ -379,7 +520,8 @@ def test_engine_kernels_match_torch_path_and_count_launches(cuda):
     ops.reset_launch_counts()
     want = roll("torch")
     assert ops.launch_counts() == {"decode_attention": 0,
-                                   "prefill_attention": 0, "wkv6": 0,
+                                   "prefill_attention": 0,
+                                   "append_attention": 0, "wkv6": 0,
                                    "rglru": 0}
     assert roll("cuda") == want
     counts = ops.launch_counts()
@@ -556,7 +698,8 @@ def test_rwkv_engine_kernel_matches_torch_path_and_counts_launches(cuda):
     assert roll("cuda") == want
     counts = ops.launch_counts()
     assert counts == {"decode_attention": 0, "prefill_attention": 0,
-                      "wkv6": 2 * cfg.n_layers, "rglru": 0}
+                      "append_attention": 0, "wkv6": 2 * cfg.n_layers,
+                      "rglru": 0}
 
 
 def _rglru_inputs(dev, dtype, seed, B, S, W):
@@ -656,7 +799,8 @@ def test_recurrentgemma_engine_kernel_matches_torch_path_and_counts(cuda):
     assert ops.launch_counts()["rglru"] == 0
     assert roll("cuda") == want
     assert ops.launch_counts() == {"decode_attention": 0,
-                                   "prefill_attention": 0, "wkv6": 0,
+                                   "prefill_attention": 0,
+                                   "append_attention": 0, "wkv6": 0,
                                    "rglru": 2 * 2}
 
 
@@ -873,10 +1017,12 @@ def test_cuda_prefill_kernel_graph_replay_equals_eager(cuda):
 def test_program_launch_counts_per_replay(cuda):
     """A capture records what each port kernel's wrapper counted; each
     replay adds exactly that, and the build (warm-up pass and capture)
-    counts nothing. qwen's decode graph of 8 steps holds 8 K1 launches a
-    layer, its turn-1 graph one K2 launch a layer, its append graph none
-    (appends attend in torch ops)."""
-    eng = _graph_engine(cuda, "qwen3-0.6b")
+    counts nothing. qwen's bf16 decode graph of 8 steps holds 8 K1 launches
+    a layer, its turn-1 graph one K2 launch a layer, its append graph one
+    launch of K2's append instance a layer and no K2 launch."""
+    cfg = get_reduced("qwen3-0.6b").scaled(dtype="bfloat16")
+    eng = ReplicaEngine(cfg, build_model(cfg).init(0, cuda), n_slots=4,
+                        max_ctx=256, attention_impl="cuda")
     L = eng.cfg.n_layers
     ops.reset_launch_counts()
     eng.warmup_decode(chunks=(8,), ctx_limits=(64,))
@@ -884,7 +1030,7 @@ def test_program_launch_counts_per_replay(cuda):
     assert sum(ops.launch_counts().values()) == 0
     assert eng._fused[(8, 64)].launches == {"decode_attention": 8 * L}
     assert eng._prefill[(64, 0)].launches == {"prefill_attention": L}
-    assert eng._append[(64, 64)].launches == {}
+    assert eng._append[(64, 64)].launches == {"append_attention": L}
     s = eng.kv.acquire()
     t, _ = eng.prefill_conversation(s, np.arange(5, 50, dtype=np.int32))
     nt = np.zeros(4, np.int32)
@@ -893,7 +1039,8 @@ def test_program_launch_counts_per_replay(cuda):
     eng.decode_steps(nt, em, 5)  # bucket 8: the graph runs 8 steps
     eng.append_prefill(s, np.arange(70, 80, dtype=np.int32))
     assert ops.launch_counts() == {"decode_attention": 8 * L,
-                                   "prefill_attention": L, "wkv6": 0,
+                                   "prefill_attention": L,
+                                   "append_attention": L, "wkv6": 0,
                                    "rglru": 0}
 
 
@@ -965,16 +1112,22 @@ def test_replay_refuses_a_moved_tensor(cuda):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("impl", ["cuda", "torch"])
-def test_fast_and_reference_prefill_caches_byte_identical(cuda, impl):
+@pytest.mark.parametrize("impl,dtype", [
+    pytest.param("cuda", "float32", id="cuda"),
+    pytest.param("torch", "float32", id="torch"),
+    pytest.param("cuda", "bfloat16", id="cuda-bfloat16")])
+def test_fast_and_reference_prefill_caches_byte_identical(cuda, impl, dtype):
     """tests/test_torch_engine.py's CPU case on the card: a turn-1 prefill
     and two appends (the prefix crossing a ctx bucket) through the graphed
     programs and through `prefill_mode="reference"` give the same tokens
-    and byte-identical caches (fp32, TF32 off)."""
-    cfg = get_reduced("qwen3-0.6b")
+    and byte-identical caches (fp32 with TF32 off; and bf16 under "cuda",
+    whose appends run K2's append instance on the gathered ctx bucket in
+    the graphs and on the slot's whole buffer in the reference path)."""
+    cfg = get_reduced("qwen3-0.6b").scaled(dtype=dtype)
     params = build_model(cfg).init(0, cuda)
     out, caches = {}, {}
     for mode in ("jit", "reference"):
+        ops.reset_launch_counts()
         eng = ReplicaEngine(cfg, params, n_slots=2, max_ctx=256,
                             prefill_mode=mode, attention_impl=impl)
         slot = eng.kv.acquire()
@@ -984,6 +1137,8 @@ def test_fast_and_reference_prefill_caches_byte_identical(cuda, impl):
         t3, _ = eng.append_prefill(slot, np.arange(200, 215, dtype=np.int32))
         out[mode] = (int(t1), int(t2), int(t3))
         caches[mode] = _caches(eng)
+        if dtype == "bfloat16":  # each append, one launch a layer
+            assert ops.launch_counts()["append_attention"] == 2 * cfg.n_layers
     assert out["jit"] == out["reference"]
     diffs = [[float((x - y).abs().max()) for x, y in zip(a, b)]
              for a, b in zip(caches["jit"], caches["reference"])]

@@ -6,7 +6,10 @@ held here against the JAX oracles (`repro.kernels.ref`) on the sweep shapes
 of tests/test_kernels.py, against the Pallas kernels in interpret mode on a
 few shapes, and against the JAX model's two-branch decode attention. The
 CUDA kernels themselves are compared with the plain versions on a card by
-the `gpu`-marked tests of tests/test_torch_gpu.py. Inputs are made with numpy from a seed
+the `gpu`-marked tests of tests/test_torch_gpu.py. K2's append instance has no JAX
+counterpart (the JAX package attends appends in jnp ops): its plain version
+is held byte for byte against the online-softmax path that the model ran
+for every append before the kernel. Inputs are made with numpy from a seed
 and handed to both sides. Tolerances as in tests/test_kernels.py: 2e-5 in
 float32, 2e-2 in bfloat16.
 """
@@ -26,7 +29,8 @@ from repro_torch.kernels import decode_attention as k1_module  # noqa: E402
 from repro_torch.kernels.decode_attention import (  # noqa: E402
     decode_attention_plain, flash_decode_attention, plan_decode_splits)
 from repro_torch.kernels.prefill_attention import (  # noqa: E402
-    flash_prefill_attention, prefill_attention_plain)
+    append_attention_plain, flash_append_attention, flash_prefill_attention,
+    prefill_attention_plain)
 from torch_support import one_thread  # noqa: E402,F401
 
 TOLS = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -264,3 +268,106 @@ def test_plain_versions_match_ref_module():
     a = decode_attention_plain(q, k, v, lens)
     b = ref.decode_attention_ref(q, k, v, lens)
     assert float((a - b).abs().max()) < TOLS["float32"]
+
+
+# --------------------------------------------------------------------------- #
+# K2's append instance: its plain version is the path every append took
+# before the kernel
+# --------------------------------------------------------------------------- #
+def _append_inputs(B, S, P, H, Hkv, D, dtype=torch.bfloat16):
+    q = torch.from_numpy(_rand(30, (B, S, H, D))).to(dtype)
+    pk, pv = (torch.from_numpy(_rand(31 + i, (B, P, Hkv, D))).to(dtype)
+              for i in range(2))
+    kn, vn = (torch.from_numpy(_rand(33 + i, (B, S, Hkv, D))).to(dtype)
+              for i in range(2))
+    return q, pk, pv, kn, vn
+
+
+@pytest.mark.parametrize("B,S,P,H,Hkv,D,lens", [
+    (1, 15, 128, 4, 2, 16, [77]), (2, 33, 512, 4, 4, 16, [0, 512]),
+    (2, 64, 1024, 6, 1, 32, [1, 600])])
+def test_append_plain_is_the_online_softmax_path(B, S, P, H, Hkv, D, lens):
+    """`ops.append_attention` on CPU tensors under "cuda" takes the plain
+    version, whose bytes are those of the online-softmax path written out
+    as the model ran it for every append before the kernel: heads
+    expanded, the prefix padded to whole PREFIX_KV_CHUNK chunks with
+    masked rows, the queries at the slot's length."""
+    from repro_torch.models.attention import (PAD_POS, PREFIX_KV_CHUNK,
+                                              online_attention)
+    q, pk, pv, kn, vn = _append_inputs(B, S, P, H, Hkv, D)
+    kv_lens = torch.tensor(lens, dtype=torch.int32)
+    got = ops.append_attention(q, pk, pv, kn, vn, kv_lens, impl="cuda")
+    start = max(lens)
+    pos = start + torch.arange(S)
+    pad = (-P) % PREFIX_KV_CHUNK
+    kv_pos = torch.cat([torch.arange(P), torch.full((pad,), PAD_POS), pos])
+
+    def keys(prefix, new):
+        prefix = torch.nn.functional.pad(
+            prefix.repeat_interleave(H // Hkv, 2), (0, 0, 0, 0, 0, pad))
+        return torch.cat([prefix, new.repeat_interleave(H // Hkv, 2)], 1)
+    valid = torch.cat([torch.arange(P + pad)[None] < kv_lens[:, None],
+                       torch.ones(B, S, dtype=torch.bool)], 1)
+    want = online_attention(q, keys(pk, kn), keys(pv, vn), pos, kv_pos,
+                            causal=True, kv_valid=valid,
+                            kv_chunk=PREFIX_KV_CHUNK)
+    assert torch.equal(got, want)
+    assert flash_append_attention.launches == 0
+
+
+def test_append_plain_bucket_equals_whole_buffer():
+    """The prefix trimmed to its ctx bucket and the whole buffer, whose rows
+    past the live length hold other bytes, give the same bytes."""
+    q, pk, pv, kn, vn = _append_inputs(1, 20, 2048, 4, 2, 16)
+    lens = torch.tensor([300], dtype=torch.int32)
+    whole = append_attention_plain(q, pk, pv, kn, vn, lens)
+    bucket = append_attention_plain(q, pk[:, :512].clone(),
+                                    pv[:, :512].clone(), kn, vn, lens)
+    assert torch.equal(whole, bucket)
+
+
+def test_append_under_cuda_on_cpu_routes_to_ops_with_todays_bytes(
+        monkeypatch):
+    """A bf16 global layer's append against a slot's prefix under "cuda" on
+    CPU tensors calls `ops.append_attention` (the kernel's router) once and
+    gives the bytes of the "torch" impl, which never calls it; an int8
+    prefix, a local layer and a contiguous history stay off it."""
+    from repro_torch.configs import get_reduced
+    from repro_torch.models import attention as A
+    from repro_torch.models.config import ATTN_GLOBAL, ATTN_LOCAL
+    from repro_torch.models.layers import init_params
+    cfg = get_reduced("qwen3-0.6b").scaled(dtype="bfloat16", window=64)
+    attn = init_params(A.Attention(cfg, "cpu"), 0)
+    x = torch.from_numpy(_rand(40, (1, 24, cfg.d_model))).to(torch.bfloat16)
+    pk, pv = (torch.from_numpy(_rand(41 + i, (1, 128, cfg.n_kv_heads,
+                                              cfg.head_dim)))
+              .to(torch.bfloat16) for i in range(2))
+    lens = torch.tensor([50], dtype=torch.int32)
+    calls = []
+    route = ops.append_attention
+    monkeypatch.setattr(ops, "append_attention",
+                        lambda *a, **kw: calls.append(1) or route(*a, **kw))
+
+    def run(impl, kind=ATTN_GLOBAL, prefix=(pk, pv), prefix_start=0,
+            cfg=cfg):
+        return A.gqa_prefill(attn, cfg, kind, x, lens,
+                             prefix_kv=dict(zip("kv", prefix)),
+                             kv_lens=lens, prefix_start=prefix_start,
+                             attention_impl=impl)[0]
+    want = run("torch")
+    assert not calls
+    assert torch.equal(run("cuda"), want)
+    assert len(calls) == 1
+    run("cuda", kind=ATTN_LOCAL)
+    run("cuda", prefix_start=None)
+    q8 = cfg.scaled(kv_cache_dtype="int8")
+    run("cuda", prefix=[A.quantize_kv(t, q8) for t in (pk, pv)], cfg=q8)
+    assert len(calls) == 1
+
+
+def test_append_wrapper_refuses_cpu_tensors():
+    q, pk, pv, kn, vn = _append_inputs(1, 4, 64, 4, 2, 16)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flash_append_attention(q, pk, pv, kn, vn,
+                               torch.ones(1, dtype=torch.int32))
+    assert flash_append_attention.launches == 0
